@@ -5,28 +5,37 @@
 
 Phases, each announced on a line of its own with the seconds since start:
   1. device: the card's name and its nvidia-smi name/power-limit line;
-  2. build: the block-tridiagonal CUDA kernel, compiled from this checkout;
-  3. kernel: the kernel against its plain PyTorch version on the card, at
-     (bsz, T, n) = (1024,5,16), (128,5,3), (128,10,5), (64,20,18) and
-     (4,200,18) (the last does not fit shared memory), in f32 and f64,
-     with one non-SPD sample per case that must come back NaN while its
-     neighbours stay finite; then the kernel's time beside the plain
+  2. build: the block-tridiagonal CUDA kernels (the warp kernel for
+     n <= 32, the block kernel for n > 32), compiled from this checkout;
+     one line of registers and spills per kernel;
+  3. kernel: each kernel against the plain PyTorch version on the card,
+     at (bsz, T, n) = (1024,5,16), (128,5,3), (128,10,5), (64,20,18),
+     (4,200,18) (does not fit shared memory), (32,5,16) and (8,5,40)
+     (n > 32), in f32 and f64, with one non-SPD sample per case that
+     must come back NaN while its neighbours stay finite: the kernel the
+     wrapper picks at every shape, and the block kernel by name at the
+     shapes the warp kernel takes; then, at four shapes, both kernels'
+     call time and device time (torch.profiler) beside the plain
      version, the dense-Cholesky library call and the bound;
   4. load: `checkpoints/rexquad_deqmpc` through the port's own reader,
      and the policy at full width;
   5. serve: tick 0's first actions on the card against the same forward
      on the CPU (f32, and f64 for a tight check), with the jittered
-     retries of both; every Newton system of the card's f32 tick 0 held
-     against the plain version on the card (same NaN samples, f32
-     tolerance on the rest); a planted fault (O transposed in the solve)
+     retries of both; every Newton system of the card's tick 0, f32 and
+     f64, held against the plain version on the card (same NaN samples,
+     the dtype's tolerance where well conditioned); the card's f64
+     forward once more with the plain solve in place of the kernel, and
+     its gap to the CPU; a planted fault (O transposed in the solve)
      that the tick-0 check must reject; then 32 episodes x 10
-     closed-loop ticks through `eval_policy` with the launch counter
-     set to 0 just before and read just after.
+     closed-loop ticks through `eval_policy` with the launch counters
+     set to 0 just before and read just after: every launch must go
+     through the warp kernel.
 Before them, one `[chip_smoke] report {...}` line holds every number
 measured. The last three lines are the nvidia-smi line, the kernels JSON
 and {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
 import json
+import re
 import sys
 import time
 
@@ -37,6 +46,10 @@ T0 = time.perf_counter()
 CKPT = "checkpoints/rexquad_deqmpc"
 EPISODES, TICKS = 32, 10
 MAIN_SHAPE = (EPISODES, 5, 16)  # the solve's shape on the served path
+KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (128, 10, 5), (64, 20, 18), (4, 200, 18), MAIN_SHAPE,
+                 (8, 5, 40)]
+TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), ((1024, 5, 16), torch.float32),
+                ((128, 5, 3), torch.float32), ((64, 20, 18), torch.float64)]
 # H100 SXM, NVIDIA data sheet: HBM rate; f32 outside the tensor cores,
 # f64 through the tensor cores (DMMA), the fastest each type can run
 HBM_BYTES_PER_S = 3.35e12
@@ -47,7 +60,8 @@ KERNEL_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
 # served Newton systems: where a Schur complement has 1/cond below this,
 # f32 rounding can turn a pivot's sign; a solve's normwise backward error
 # stays within ~T*n*eps = 80 * 6e-8 of 0
-BORDERLINE_INV_COND, BACKWARD_ERR_F32 = 1e-5, 1e-5
+BORDERLINE_INV_COND = 1e-5
+BACKWARD_ERR = {torch.float32: 1e-5, torch.float64: 1e-12}
 # tick-0 first actions, card vs CPU: the median and 75th percentile over
 # episodes of the per-episode max |du| (see PERF.md for why quantiles)
 ACTION_TOL = {torch.float32: {"median": 5e-2, "p75": 1.0},
@@ -78,6 +92,8 @@ def problem(bsz, T, n, dtype, seed=0, nonspd=None):
 
 
 def cuda_ms(fn, iters):
+    """Time per call of back-to-back calls: the wrapper's host work and the
+    kernel, whichever is longer."""
     for _ in range(3):
         fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -88,6 +104,27 @@ def cuda_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, key, iters=50):
+    """The kernel's own device time per launch: torch.profiler's device
+    time of the kernels whose name holds `key`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if key in e.key]
+    count = sum(e.count for e in events)
+    total_us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+                   for e in events)
+    check(count > 0 and total_us > 0,
+          f"the profiler shows {count} launches of {key} and {total_us} us for {iters} calls")
+    return total_us / 1e3 / count
 
 
 def bound_ms(bsz, T, n, dtype):
@@ -105,6 +142,8 @@ def bound_ms(bsz, T, n, dtype):
 
 
 def time_solve(bt, tridiag, bsz, T, n, dtype):
+    """Both kernels at one shape, in turns (warp, block, block, warp), beside
+    the plain version, the library call and the bound."""
     D, O, b = problem(bsz, T, n, dtype, seed=1)
     H = tridiag.block_tridiag_dense(D, O)
     bcol = b.reshape(bsz, T * n, 1)
@@ -115,10 +154,34 @@ def time_solve(bt, tridiag, bsz, T, n, dtype):
         return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
     bnd, by = bound_ms(bsz, T, n, dtype)
-    return {"shape": [bsz, T, n], "dtype": str(dtype).replace("torch.", ""),
-            "ms": cuda_ms(lambda: bt.block_tridiag_solve(D, O, b), 200),
-            "plain_ms": cuda_ms(lambda: tridiag.block_tridiag_solve(D, O, b), 20),
-            "library_ms": cuda_ms(library, 20), "bound_ms": bnd, "bound_by": by}
+    row = {"shape": [bsz, T, n], "dtype": str(dtype).replace("torch.", ""),
+           "plain_ms": cuda_ms(lambda: tridiag.block_tridiag_solve(D, O, b), 20),
+           "library_ms": cuda_ms(library, 20), "bound_ms": bnd, "bound_by": by}
+    for kernel in ("warp", "block", "block", "warp"):
+        call = lambda: bt.block_tridiag_solve(D, O, b, kernel=kernel)  # noqa: E731
+        ms = cuda_ms(call, 200)
+        dev = device_ms(call, bt.KERNEL_FUNCTIONS[kernel])
+        row.setdefault(f"{kernel}_ms", []).append(ms)
+        row.setdefault(f"{kernel}_device_ms", []).append(dev)
+    for key in ("warp_ms", "warp_device_ms", "block_ms", "block_device_ms"):
+        row[key] = min(row[key])
+    row["speedup_device"] = row["block_device_ms"] / row["warp_device_ms"]
+    return row
+
+
+def ptxas_summary(text):
+    """One line per kernel from nvcc -Xptxas -v: registers and spills."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(bt_warp_kernel|block_tridiag_solve_kernel)I([fd])(?:Li(\d+)E)?",
+                          m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}{', ' + k.group(3) if k.group(3) else ''}>" \
+                if k else m.group(1)
+        elif name and ("spill" in line or "registers" in line):
+            out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return out
 
 
 def action_gap(u_card, u_cpu):
@@ -156,14 +219,16 @@ def backward_error(tridiag, D, O, x, b):
     return r.flatten(1).norm(dim=1) / (nH * x.flatten(1).norm(dim=1) + b.flatten(1).norm(dim=1))
 
 
-def check_served_systems(bt, tridiag, systems):
-    """Every Newton system (g, D, O) of a served forward, the kernel against
-    the plain version on the card. Most of them are indefinite or nearly
-    singular (rho up to 1e5 in f32), so: the two give NaN on the same
-    samples except where a pivot is within rounding of 0; every finite
-    kernel result has a backward error at f32 rounding level; and where
-    the system is well conditioned the two agree within the f32 tolerance."""
-    st = {"systems": len(systems), "samples": 0, "nan_kernel": 0, "nan_plain": 0,
+def check_served_systems(bt, tridiag, systems, dtype):
+    """Every Newton system (g, D, O) of a served forward in `dtype`, the
+    kernel against the plain version on the card. Most of them are
+    indefinite or nearly singular (rho up to 1e5), so: the two give NaN on
+    the same samples except where a pivot is within rounding of 0; every
+    finite kernel result has a backward error at the dtype's rounding
+    level; and where the system is well conditioned the two agree within
+    the dtype's tolerance."""
+    st = {"dtype": str(dtype), "systems": len(systems), "samples": 0, "nan_kernel": 0,
+          "nan_plain": 0,
           "nan_f64": 0, "nan_plain_and_f64": 0,
           "nan_mismatch": 0, "nan_mismatch_inv_cond_max": 0.0, "retry_mismatch": 0,
           "well_conditioned": 0, "max_abs_err_well_conditioned": 0.0,
@@ -202,14 +267,14 @@ def check_served_systems(bt, tridiag, systems):
             st["max_abs_err_well_conditioned"] = max(st["max_abs_err_well_conditioned"],
                                                      float((x[well] - x_ref[well]).abs().max()))
             try:
-                torch.testing.assert_close(x[well], x_ref[well], **KERNEL_TOL[torch.float32])
+                torch.testing.assert_close(x[well], x_ref[well], **KERNEL_TOL[dtype])
             except AssertionError as e:
                 failures.append(f"system {i}: {e}")
     print(f"[chip_smoke]   served Newton systems, kernel vs plain: {json.dumps(st)}", flush=True)
     check(st["nan_mismatch_inv_cond_max"] < BORDERLINE_INV_COND,
           "kernel and plain version disagree on NaN where no pivot is near 0")
-    check(st["backward_err_kernel_max"] <= BACKWARD_ERR_F32,
-          f"kernel backward error {st['backward_err_kernel_max']} > {BACKWARD_ERR_F32}")
+    check(st["backward_err_kernel_max"] <= BACKWARD_ERR[dtype],
+          f"kernel backward error {st['backward_err_kernel_max']} > {BACKWARD_ERR[dtype]}")
     check(not failures, "\n".join(failures))
     return st
 
@@ -244,33 +309,33 @@ def main() -> int:
     ptxas = bt.build()
     bt._load_library()
     report["build_s"] = time.perf_counter() - t
-    print(ptxas.strip(), flush=True)
+    report["ptxas"] = ptxas_summary(ptxas)
+    for name, line in report["ptxas"].items():
+        print(f"[chip_smoke]   ptxas {name}: {line}", flush=True)
     phase("build done", seconds=report["build_s"])
 
-    # -- 3. kernel vs plain version ------------------------------------------
+    # -- 3. kernels vs plain version -----------------------------------------
     phase("kernel")
     worst = {}
     for dtype in (torch.float32, torch.float64):
-        for bsz, T, n in [(1024, 5, 16), (128, 5, 3), (128, 10, 5), (64, 20, 18),
-                          (4, 200, 18), MAIN_SHAPE]:
+        for bsz, T, n in KERNEL_SHAPES:
             D, O, b = problem(bsz, T, n, dtype, nonspd=1)
-            x = bt.block_tridiag_solve(D, O, b)
-            torch.cuda.synchronize()
             x_ref = tridiag.block_tridiag_solve(D, O, b)
-            check(bool(torch.isnan(x[1]).all()) and bool(torch.isnan(x_ref[1]).all()),
-                  f"non-SPD sample not NaN at {(bsz, T, n)} {dtype}")
+            check(bool(torch.isnan(x_ref[1]).all()), f"plain: non-SPD sample not NaN at {(bsz, T, n)}")
             keep = torch.ones(bsz, dtype=torch.bool, device="cuda")
             keep[1] = False
-            check(bool(torch.isfinite(x[keep]).all()), f"finite samples broke at {(bsz, T, n)}")
-            torch.testing.assert_close(x[keep], x_ref[keep], **KERNEL_TOL[dtype])
-            err = float((x[keep] - x_ref[keep]).abs().max())
-            worst[f"{bsz}x{T}x{n}/{dtype}"] = err
-            print(f"[chip_smoke]   {(bsz, T, n)} {dtype}: max|kernel-plain| = {err:.3e}",
-                  flush=True)
+            for kernel in dict.fromkeys([bt.pick_kernel(n), "block"]):
+                x = bt.block_tridiag_solve(D, O, b, kernel=kernel)
+                torch.cuda.synchronize()
+                where = f"{kernel} kernel at {(bsz, T, n)} {dtype}"
+                check(bool(torch.isnan(x[1]).all()), f"non-SPD sample not NaN: {where}")
+                check(bool(torch.isfinite(x[keep]).all()), f"finite samples broke: {where}")
+                torch.testing.assert_close(x[keep], x_ref[keep], **KERNEL_TOL[dtype])
+                err = float((x[keep] - x_ref[keep]).abs().max())
+                worst[f"{kernel}/{bsz}x{T}x{n}/{dtype}"] = err
+                print(f"[chip_smoke]   {where}: max|kernel-plain| = {err:.3e}", flush=True)
     report["kernel_max_abs_err"] = worst
-    timings = [time_solve(bt, tridiag, *shape, torch.float32)
-               for shape in [MAIN_SHAPE, (1024, 5, 16), (128, 5, 3)]]
-    timings.append(time_solve(bt, tridiag, 64, 20, 18, torch.float64))
+    timings = [time_solve(bt, tridiag, *shape, dtype) for shape, dtype in TIMED_SHAPES]
     report["kernel_timings"] = timings
     for row in timings:
         print(f"[chip_smoke]   timing {json.dumps(row)}", flush=True)
@@ -287,7 +352,7 @@ def main() -> int:
     # -- 5. serve -------------------------------------------------------------
     phase("serve: tick 0 on the card vs the CPU")
     x0 = env.reset(torch.Generator().manual_seed(0), EPISODES, device="cpu")
-    gaps, retries, systems = {}, {}, []
+    gaps, retries, systems = {}, {}, {}
 
     def first_actions(p, x):
         return p.forward(x)["trajs"][-1][2][:, 0]
@@ -302,11 +367,10 @@ def main() -> int:
                 p.model.to(dtype)
                 pols[dev] = p
             newton = pols["cuda"].tracking_mpc.ctrl.newton
-            if dtype == torch.float32:
-                # keep every Newton system the card solves in this forward
-                solve = newton._solve_newton_system
-                newton._solve_newton_system = lambda g, D, O: (
-                    systems.append((g.clone(), D.clone(), O.clone())), solve(g, D, O))[1]
+            # keep every Newton system the card solves in this forward
+            solve, kept = newton._solve_newton_system, systems.setdefault(dtype, [])
+            newton._solve_newton_system = lambda g, D, O: (
+                kept.append((g.clone(), D.clone(), O.clone())), solve(g, D, O))[1]
             u = {dev: first_actions(pols[dev], x0.to(dev, dtype)) for dev in ("cuda", "cpu")}
             newton.__dict__.pop("_solve_newton_system", None)
             check(bool(torch.isfinite(u["cuda"]).all()), f"non-finite action on the card ({dtype})")
@@ -327,6 +391,18 @@ def main() -> int:
                 gaps["planted_fault_O_transposed"] = g_bad = action_gap(u_bad, u["cpu"])
                 print(f"[chip_smoke]   planted fault: tick-0 action gap {json.dumps(g_bad)}",
                       flush=True)
+            else:
+                # the same f64 forward on the card with the plain solve in
+                # place of the kernel: does the card-vs-CPU gap come from it?
+                good_solve = newton_al.block_tridiag_solve
+                newton_al.block_tridiag_solve = tridiag.block_tridiag_solve
+                u_plain = first_actions(pols["cuda"], x0.to("cuda", dtype))
+                newton_al.block_tridiag_solve = good_solve
+                gaps["f64_plain_solve_on_card"] = action_gap(u_plain, u["cpu"])
+                gaps["f64_kernel_vs_plain_solve_on_card"] = action_gap(u["cuda"], u_plain.cpu())
+                print("[chip_smoke]   f64 with the plain solve on the card: gap to the CPU "
+                      f"{json.dumps(gaps['f64_plain_solve_on_card'])}, to the kernel "
+                      f"{json.dumps(gaps['f64_kernel_vs_plain_solve_on_card'])}", flush=True)
         # f32 rounding sensitivity of the same forward on the card
         noise = 1e-6 * torch.randn(x0.shape, generator=torch.Generator().manual_seed(1))
         u_a = first_actions(policy, x0.cuda())
@@ -336,7 +412,8 @@ def main() -> int:
               flush=True)
     report["tick0_action_gap"] = gaps
     report["tick0_retries"] = retries
-    report["served_systems"] = check_served_systems(bt, tridiag, systems)
+    report["served_systems"] = [check_served_systems(bt, tridiag, systems[dtype], dtype)
+                                for dtype in (torch.float32, torch.float64)]
     for dtype in (torch.float32, torch.float64):
         check(gap_within(gaps[str(dtype)], dtype),
               f"tick-0 actions, card vs CPU ({dtype}): {gaps[str(dtype)]} "
@@ -346,12 +423,14 @@ def main() -> int:
 
     phase("serve: closed loop", episodes=EPISODES, ticks=TICKS)
     bt.block_tridiag_solve.launches = 0
+    bt.block_tridiag_solve.launches_by_kernel = dict.fromkeys(bt.KERNELS, 0)
     steps0 = policy.newton_steps
     res = eval_policy(args, env, policy, n_episodes=EPISODES, ep_len=TICKS, seed=0,
                       device="cuda")
     launches = bt.block_tridiag_solve.launches
+    by_kernel = dict(bt.block_tridiag_solve.launches_by_kernel)
     newton_steps = policy.newton_steps - steps0
-    res.update(launches=launches, newton_steps=newton_steps,
+    res.update(launches=launches, launches_by_kernel=by_kernel, newton_steps=newton_steps,
                launches_per_tick=launches / TICKS)
     report["serve"] = res
     phase("serve done", **res)
@@ -359,18 +438,23 @@ def main() -> int:
     check(np.isfinite(res["mean_reward"]), "non-finite reward")
     check(newton_steps > 0 and launches >= newton_steps,
           f"{launches} kernel launches for {newton_steps} Newton steps")
+    check(by_kernel["warp"] == launches and by_kernel["block"] == 0,
+          f"the served path did not go through the warp kernel alone: {by_kernel}")
 
     # -- 6. result ------------------------------------------------------------
     main_t = timings[0]
     kernels = [{
-        "name": "block_tridiag_solve", "route": "cuda",
+        "name": f"block_tridiag_solve[{kernel}]", "route": "cuda",
         "source": "deqmpc_tpu_torch/ops/csrc/block_tridiag.cu",
         "replaces": "deqmpc_tpu/ops/pallas_tridiag.py:100",
-        "launches": launches,
-        "max_abs_err": worst[f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}x{MAIN_SHAPE[2]}/torch.float32"],
-        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
+        "launches": by_kernel[kernel],
+        "max_abs_err": worst[f"{kernel}/{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}x{MAIN_SHAPE[2]}/torch.float32"],
+        "ms": main_t[f"{kernel}_ms"], "device_ms": main_t[f"{kernel}_device_ms"],
+        "device_ms_by_shape": {f"{r['shape']}/{r['dtype']}": r[f"{kernel}_device_ms"]
+                               for r in timings},
+        "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"], "library_ms": main_t["library_ms"],
-    }]
+    } for kernel in bt.KERNELS]
     report["wall_s"] = time.perf_counter() - T0
     print(f"[chip_smoke] report {json.dumps(report)}", flush=True)
     phase("done")

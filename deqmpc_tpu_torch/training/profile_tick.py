@@ -53,6 +53,7 @@ def main(argv=None):
         x = _tick(policy, env, x)  # warm-up: allocator, cuBLAS handles
         sync()
         launches0, steps0 = bt.block_tridiag_solve.launches, policy.newton_steps
+        by_kernel0 = dict(bt.block_tridiag_solve.launches_by_kernel)
         with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(a.ticks):
@@ -67,7 +68,8 @@ def main(argv=None):
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
 
     device_us = sum(dev_us(e) for e in kernels) / a.ticks
-    solve_us = sum(dev_us(e) for e in kernels if "block_tridiag" in e.key) / a.ticks
+    solve_us = sum(dev_us(e) for e in kernels
+                   if any(f in e.key for f in bt.KERNEL_FUNCTIONS.values())) / a.ticks
     top_host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
     top_host = [e for e in top_host if e.device_type != cuda]
     top_dev = sorted(kernels, key=dev_us, reverse=True)[:15]
@@ -79,6 +81,9 @@ def main(argv=None):
         "kernel_launches_per_tick": sum(e.count for e in kernels) / a.ticks,
         "block_tridiag_ms_per_tick": solve_us / 1e3,
         "block_tridiag_launches_per_tick": (bt.block_tridiag_solve.launches - launches0) / a.ticks,
+        "block_tridiag_launches_by_kernel": {
+            k: (bt.block_tridiag_solve.launches_by_kernel[k] - by_kernel0[k]) / a.ticks
+            for k in bt.KERNELS},
         "newton_steps_per_tick": (policy.newton_steps - steps0) / a.ticks,
         "top_host_ops": [{"op": e.key, "calls": e.count / a.ticks,
                           "self_cpu_ms": e.self_cpu_time_total / 1e3 / a.ticks}

@@ -1,5 +1,7 @@
-"""The CUDA block-tridiagonal kernel against its plain PyTorch version on
-the card. The kernel has no CPU mode, so these tests skip without a GPU.
+"""The CUDA block-tridiagonal kernels against their plain PyTorch version
+on the card: the warp kernel (n <= 32, the main path) and the block
+kernel (n > 32, or asked for by name). The kernels have no CPU mode, so
+these tests skip without a GPU.
 
 The module imports only torch, numpy and the port, so it also runs on a
 GPU machine without JAX; there, skip `tests/conftest.py` (which sets up
@@ -52,3 +54,52 @@ def test_kernel_matches_plain_on_card(bsz, T, n, dtype):
     keep = torch.arange(bsz, device="cuda") != 1
     assert torch.isfinite(x[keep]).all()
     torch.testing.assert_close(x[keep], x_ref[keep], **TOL[dtype])
+
+
+def _check_against_plain(D, O, b, kernel, nonspd, dtype):
+    x = bt.block_tridiag_solve(D, O, b, kernel=kernel)
+    torch.cuda.synchronize()
+    x_ref = tridiag.block_tridiag_solve(D, O, b)
+    keep = torch.ones(D.shape[0], dtype=torch.bool, device="cuda")
+    for s in nonspd:
+        assert torch.isnan(x[s]).all() and torch.isnan(x_ref[s]).all()
+        keep[s] = False
+    assert torch.isfinite(x[keep]).all()
+    torch.testing.assert_close(x[keep], x_ref[keep], **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bsz,T,n,kernel", [
+    (40, 5, 1, "warp"), (40, 5, 32, "warp"), (40, 5, 33, "block"),  # the edges in n
+    (40, 1, 16, "warp"), (40, 1, 33, "block"),                      # T = 1
+    (33, 5, 16, "warp"),               # bsz not a multiple of the samples per CTA
+    (8, 5, 16, "block"), (8, 5, 3, "block"),  # the block kernel asked for by name
+])
+def test_kernel_edges_match_plain(bsz, T, n, kernel, dtype):
+    D, O, b = _problem(bsz, T, n, dtype, seed=3, nonspd=1)
+    before = dict(bt.block_tridiag_solve.launches_by_kernel)
+    _check_against_plain(D, O, b, None if kernel == "warp" or n > 32 else kernel, [1], dtype)
+    after = bt.block_tridiag_solve.launches_by_kernel
+    assert after[kernel] == before[kernel] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_nonspd_sample_first_or_last_in_its_cta_stays_alone(where, dtype):
+    """A CTA of the warp kernel holds 4 samples (warps); a non-SPD sample
+    first or last in one must not spread NaN to the others."""
+    bsz = 16
+    bad = [4, 8] if where == "first" else [3, 7]
+    D, O, b = _problem(bsz, 5, 16, dtype, seed=4)
+    for s in bad:
+        D[s, 2] = -torch.eye(16, dtype=dtype, device="cuda")
+    _check_against_plain(D, O, b, None, bad, dtype)
+
+
+def test_main_path_shape_goes_through_the_warp_kernel():
+    D, O, b = _problem(32, 5, 16, torch.float32, seed=5)
+    before = dict(bt.block_tridiag_solve.launches_by_kernel)
+    bt.block_tridiag_solve(D, O, b)
+    after = bt.block_tridiag_solve.launches_by_kernel
+    assert after["warp"] == before["warp"] + 1 and after["block"] == before["block"]

@@ -21,8 +21,9 @@ from deqmpc_tpu_torch.ops import tridiag  # noqa: E402
 torch.set_num_threads(2)
 
 # shapes of tests/test_pallas_tridiag.py plus the T=20, n=18 horizon the
-# Pallas kernel could not hold in VMEM
-SHAPES = [(4, 5, 3), (130, 5, 3), (8, 5, 16), (16, 1, 4), (64, 20, 18)]
+# Pallas kernel could not hold in VMEM, and n=33, the first block size the
+# CUDA wrapper sends to its block kernel
+SHAPES = [(4, 5, 3), (130, 5, 3), (8, 5, 16), (16, 1, 4), (64, 20, 18), (4, 3, 33)]
 # Pallas interpret mode takes about 100 s at (64, 20, 18) on the CPU, so
 # that shape is held against the XLA scan version only
 PALLAS_SHAPES = SHAPES[:4]
@@ -131,6 +132,28 @@ def test_wrapper_checks_its_arguments(bad):
 
 def test_cpu_path_does_not_count_launches():
     before = bt.block_tridiag_solve.launches
+    by_kernel = dict(bt.block_tridiag_solve.launches_by_kernel)
     bt.block_tridiag_solve(*_torch(*_problem(2, 3, 3)))
     assert bt.block_tridiag_solve.launches == before
+    assert bt.block_tridiag_solve.launches_by_kernel == by_kernel
 
+
+
+@pytest.mark.parametrize("n,kernel,expected", [
+    (1, None, "warp"), (16, None, "warp"), (32, None, "warp"), (33, None, "block"),
+    (16, "block", "block"), (40, "block", "block"), (16, "warp", "warp")])
+def test_pick_kernel_by_block_size(n, kernel, expected):
+    assert bt.pick_kernel(n, kernel) == expected
+
+
+@pytest.mark.parametrize("n,kernel", [(33, "warp"), (16, "tensorcore")])
+def test_pick_kernel_rejects_what_no_kernel_takes(n, kernel):
+    with pytest.raises(ValueError):
+        bt.pick_kernel(n, kernel)
+
+
+def test_cpu_tensors_take_no_kernel_name():
+    """The CPU runs the plain version; naming a kernel there is an error,
+    not a silent plain solve."""
+    with pytest.raises(ValueError, match="needs CUDA"):
+        bt.block_tridiag_solve(*_torch(*_problem(2, 3, 3)), kernel="warp")
