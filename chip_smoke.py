@@ -9,12 +9,14 @@ Phases, each announced on a line of its own with the seconds since start:
      n <= 32, the block kernel for n > 32), compiled from this checkout;
      one line of registers and spills per kernel;
   3. kernel: each kernel against the plain PyTorch version on the card,
-     at (bsz, T, n) = (1024,5,16), (128,5,3), (128,10,5), (64,20,18),
-     (4,200,18) (does not fit shared memory), (32,5,16) and (8,5,40)
-     (n > 32), in f32 and f64, with one non-SPD sample per case that
-     must come back NaN while its neighbours stay finite: the kernel the
-     wrapper picks at every shape, and the block kernel by name at the
-     shapes the warp kernel takes; then, at four shapes, both kernels'
+     at (bsz, T, n) = (1024,5,16), (128,5,3) (training, config #1),
+     (128,10,5), (64,20,18), (4,200,18) (does not fit shared memory),
+     (32,5,16) (serving), (128,5,16) (training, config #4), (32,5,3)
+     (serving the pendulum) and (8,5,40) (n > 32), in f32 and f64, with
+     one non-SPD sample per case that must come back NaN while its
+     neighbours stay finite: the kernel the wrapper picks at every shape,
+     and the block kernel by name at the shapes the warp kernel takes;
+     then, at the five shapes of TIMED_SHAPES, both kernels'
      call time and device time (torch.profiler) beside the plain
      version, the dense-Cholesky library call and the bound;
   4. load: `checkpoints/rexquad_deqmpc` through the port's own reader,
@@ -29,11 +31,29 @@ Phases, each announced on a line of its own with the seconds since start:
      that the tick-0 check must reject; then 32 episodes x 10
      closed-loop ticks through `eval_policy` with the launch counters
      set to 0 just before and read just after: every launch must go
-     through the warp kernel.
+     through the warp kernel;
+  6. train, config #4 (RexQuadrotor, full width, from
+     `checkpoints/rexquad_deqmpc`): one seeded bsz-128 batch of the expert
+     data through the port's pipeline; step 0 on the CPU and on the card,
+     in f32 and in f64 (within STEP0_RTOL: the loss in f32, the loss and
+     gradient norm in f64; the f32 gradient norm's gap is printed), the
+     card's step 0 once more from start states moved by 1e-6 (f32) and
+     1e-12 (f64) (its rounding sensitivity) and once with a planted fault
+     (the implicit backward's dQ and dq with their signs flipped, f64),
+     then 3 steps on the card with the counts set to 0 just before: finite loss
+     and gradient norm, every solve through the warp kernel, exactly one
+     implicit-backward solve per round (6 a step); the step time split into
+     forward, backward and optimizer; one more step under torch.profiler
+     for the kernel's device time per step;
+  7. train, config #1 (pendulum, a seeded fresh policy at full width,
+     bsz 128): 5 steps on one batch; the loss must fall;
+  8. serve `checkpoints/pendulum_deqmpc`: 32 episodes x 20 closed-loop
+     ticks, no NaN, every solve through the warp kernel at n = 3.
 Before them, one `[chip_smoke] report {...}` line holds every number
 measured. The last three lines are the nvidia-smi line, the kernels JSON
 and {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
+import dataclasses
 import json
 import re
 import sys
@@ -44,12 +64,20 @@ import torch
 
 T0 = time.perf_counter()
 CKPT = "checkpoints/rexquad_deqmpc"
+PENDULUM_CKPT = "checkpoints/pendulum_deqmpc"
 EPISODES, TICKS = 32, 10
-MAIN_SHAPE = (EPISODES, 5, 16)  # the solve's shape on the served path
-KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (128, 10, 5), (64, 20, 18), (4, 200, 18), MAIN_SHAPE,
-                 (8, 5, 40)]
-TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), ((1024, 5, 16), torch.float32),
-                ((128, 5, 3), torch.float32), ((64, 20, 18), torch.float64)]
+PENDULUM_EPISODES, PENDULUM_TICKS = 32, 20
+TRAIN_BSZ, TRAIN_STEPS, PENDULUM_TRAIN_STEPS = 128, 3, 5
+SERVE_SHAPE = (EPISODES, 5, 16)  # the solve's shape on the served path
+# the solve's shape in the config-#4 training step, forward and backward:
+# this slice's main path, whose numbers the kernels line reports
+MAIN_SHAPE = (TRAIN_BSZ, 5, 16)
+PENDULUM_SERVE_SHAPE = (PENDULUM_EPISODES, 5, 3)  # the served pendulum's solve
+KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (128, 10, 5), (64, 20, 18), (4, 200, 18), SERVE_SHAPE,
+                 MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40)]
+TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
+                ((1024, 5, 16), torch.float32), ((128, 5, 3), torch.float32),
+                ((64, 20, 18), torch.float64)]
 # H100 SXM, NVIDIA data sheet: HBM rate; f32 outside the tensor cores,
 # f64 through the tensor cores (DMMA), the fastest each type can run
 HBM_BYTES_PER_S = 3.35e12
@@ -66,6 +94,19 @@ BACKWARD_ERR = {torch.float32: 1e-5, torch.float64: 1e-12}
 # episodes of the per-episode max |du| (see PERF.md for why quantiles)
 ACTION_TOL = {torch.float32: {"median": 5e-2, "p75": 1.0},
               torch.float64: {"median": 1e-4, "p75": 1e-3}}
+# config-#4 training step 0, card vs CPU, relative gap. The f32 forward
+# turns rounding into moves of single samples (PERF.md: start states moved
+# by 1e-6 move first actions by a median of 0.0028 and a max of 2.1); the
+# loss averages 128 samples over 6 rounds, so a few moved samples move it
+# by about 1%. The f32 gradient norm is no sharper than its own rounding
+# sensitivity: on the card, start states moved by 1e-6 moved it by 66%
+# (PERF.md), since half of the backward's samples have an indefinite
+# Hessian and are zeroed, and which half flips with rounding; so its gap
+# is printed with no limit. The f64 step keeps the same configuration
+# with no indefinite Hessian to flip: its limits hold the backward, and it
+# is the only step-0 check that a fault of the backward can fail
+STEP0_RTOL = {torch.float32: {"loss": 2e-2},
+              torch.float64: {"loss": 1e-3, "grad_norm": 5e-2}}
 
 
 def phase(name, **info):
@@ -184,6 +225,185 @@ def ptxas_summary(text):
     return out
 
 
+def dev_us(e):
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+
+
+def reset_counts(bt):
+    bt.block_tridiag_solve.launches = 0
+    bt.block_tridiag_solve.launches_by_kernel = dict.fromkeys(bt.KERNELS, 0)
+
+
+def path_counts(bt, policy, before):
+    """Launches by kernel, Newton steps, retries and backward solves since
+    `before` (a dict of the policy's counts taken at the start)."""
+    return {"launches": bt.block_tridiag_solve.launches,
+            "launches_by_kernel": dict(bt.block_tridiag_solve.launches_by_kernel),
+            "newton_steps": policy.newton_steps - before["newton_steps"],
+            "retries": policy.newton_retries - before["retries"],
+            "backward_solves": policy.backward_solves - before["backward_solves"]}
+
+
+def policy_counts(policy):
+    return {"newton_steps": policy.newton_steps, "retries": policy.newton_retries,
+            "backward_solves": policy.backward_solves}
+
+
+def check_all_warp(counts, what):
+    by = counts["launches_by_kernel"]
+    check(counts["launches"] > 0 and by["warp"] == counts["launches"] and by["block"] == 0,
+          f"{what}: not every solve went through the warp kernel: {by}")
+    solves = counts["newton_steps"] + counts["retries"] + counts["backward_solves"]
+    check(counts["launches"] == solves,
+          f"{what}: {counts['launches']} launches for {solves} solves ({counts})")
+
+
+def rel_gap(a, b):
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env, batch_np):
+    """Config #4's training step: step 0 on the card against the CPU, in
+    f32 (the trained configuration) and f64 (tight), each beside the card's
+    own move under a perturbation of the start states; then TRAIN_STEPS
+    steps on the card (the main path) and one profiled step."""
+    def fresh(dev, dtype=torch.float32):
+        p = build_policy(args, env, dev)
+        if dtype == torch.float64:
+            p = DEQMPCPolicy(dataclasses.replace(p.cfg, solver_dtype=dtype), env, dev)
+            p.model.double()
+        p.model.load_state_dict({k: v.to(dev) for k, v in state.items()})
+        return p, train.make_optimizer(p)
+
+    def step0(dev, dtype, rel_noise=0.0):
+        b = dict(batch_np)
+        noise = np.random.default_rng(1).normal(size=b["obs"].shape)
+        b["obs"] = b["obs"].astype(np.float64) * (1 + rel_noise * noise)
+        p, o = fresh(dev, dtype)
+        t = time.perf_counter()
+        res = train.train_step(p, o, train.to_device(b, dev, dtype))
+        return {"loss": float(res["loss"]), "grad_norm": float(res["grad_norm"]),
+                "s": time.perf_counter() - t}
+
+    def gaps(a, b):
+        return {k: rel_gap(a[k], b[k]) for k in ("loss", "grad_norm")}
+
+    out = {"cpu_step0": step0("cpu", torch.float32),
+           "card_step0_moved_1e-6": step0("cuda", torch.float32, 1e-6),
+           "cpu_step0_f64": step0("cpu", torch.float64),
+           "card_step0_f64": step0("cuda", torch.float64),
+           "card_step0_f64_moved_1e-12": step0("cuda", torch.float64, 1e-12)}
+    out["step0_gap_card_vs_cpu_f64"] = gaps(out["card_step0_f64"], out["cpu_step0_f64"])
+    out["step0_gap_sensitivity_f64_1e-12"] = gaps(out["card_step0_f64_moved_1e-12"],
+                                                  out["card_step0_f64"])
+    # a planted fault the f64 check should see: the implicit backward's
+    # gradients into Q and q with their signs flipped
+    good = newton_al.implicit_grads
+    newton_al.implicit_grads = lambda *a: (lambda dQ, dq, z: (-dQ, -dq, z))(*good(*a))
+    try:
+        out["card_step0_f64_planted_sign_flip"] = step0("cuda", torch.float64)
+    finally:
+        newton_al.implicit_grads = good
+    out["step0_gap_planted_sign_flip_f64"] = gaps(out["card_step0_f64_planted_sign_flip"],
+                                                  out["cpu_step0_f64"])
+
+    policy, opt = fresh("cuda")
+    batch = train.to_device(batch_np, "cuda")
+    torch.cuda.synchronize()
+    before = policy_counts(policy)
+    reset_counts(bt)
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        c0, by0 = policy_counts(policy), dict(bt.block_tridiag_solve.launches_by_kernel)
+        timings = {}
+        t = time.perf_counter()
+        res = train.train_step(policy, opt, batch, timings=timings)
+        step_s = time.perf_counter() - t  # train_step synchronised the card
+        c1 = policy_counts(policy)
+        steps.append({"loss": float(res["loss"]), "grad_norm": float(res["grad_norm"]),
+                      "step_s": step_s, **timings,
+                      **{k: c1[k] - c0[k] for k in c1},
+                      "launches_by_kernel": {k: bt.block_tridiag_solve.launches_by_kernel[k] - by0[k]
+                                             for k in bt.KERNELS}})
+    out["counts"] = path_counts(bt, policy, before)
+    out["deq_iter"] = policy.cfg.deq_iter
+    out["backward_zeroed_share"] = policy.backward_zeroed_share()
+    out["steps"] = steps
+    out["card_step0"] = {k: steps[0][k] for k in ("loss", "grad_norm")}
+    out["step0_gap_card_vs_cpu"] = gaps(out["card_step0"], out["cpu_step0"])
+    out["step0_gap_sensitivity_1e-6"] = gaps(out["card_step0_moved_1e-6"], out["card_step0"])
+    step_s = float(np.median([s["step_s"] for s in steps]))
+    out["step_s_median"] = step_s
+    for part in ("forward_s", "backward_s", "optimizer_s"):
+        out[f"{part}_median"] = float(np.median([s[part] for s in steps]))
+    out["backward_share"] = out["backward_s_median"] / step_s
+
+    # one more step under the profiler: the kernel's device time per step
+    # (device activity only: host events of ~100k ops take minutes to sum)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        train.train_step(policy, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(dev_us(e) for e in kernels)
+    solve = [e for e in kernels if bt.KERNEL_FUNCTIONS["warp"] in e.key]
+    out["profiled_step"] = {
+        "wall_s": wall, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "kernel_launches": sum(e.count for e in kernels),
+        "warp_kernel_launches": sum(e.count for e in solve),
+        "warp_kernel_device_ms": sum(dev_us(e) for e in solve) / 1e3}
+    return out
+
+
+def train_pendulum(bt, train, build_policy, env, batch_np):
+    """Config #1: a seeded fresh policy at full width, PENDULUM_TRAIN_STEPS
+    steps on one batch."""
+    args = vars(train.parse_args(["--env", "pendulum", "--model_type", "deq-mpc-deq", "--T", "5",
+                                  "--deq_iter", "6", "--hdim", "256", "--bsz", str(TRAIN_BSZ)]))
+    policy = build_policy(args, env, "cuda").init(0)
+    opt = train.make_optimizer(policy)
+    batch = train.to_device(batch_np, "cuda")
+    torch.cuda.synchronize()
+    before = policy_counts(policy)
+    reset_counts(bt)
+    losses, norms, step_s = [], [], []
+    for _ in range(PENDULUM_TRAIN_STEPS):
+        timings = {}
+        res = train.train_step(policy, opt, batch, timings=timings)
+        losses.append(float(res["loss"]))
+        norms.append(float(res["grad_norm"]))
+        step_s.append(sum(timings.values()))
+    return {"losses": losses, "grad_norms": norms, "step_s": step_s,
+            "backward_zeroed_share": policy.backward_zeroed_share(),
+            "hdim": policy.cfg.hdim, "deq_iter": policy.cfg.deq_iter,
+            "counts": path_counts(bt, policy, before)}
+
+
+def serve_pendulum(bt, newton_al, build_policy, load_checkpoint, make_env, eval_policy):
+    """`pendulum_deqmpc` in closed loop, recording the block size of every
+    solve."""
+    state, args = load_checkpoint(PENDULUM_CKPT, "cuda")
+    env = make_env(args["env"])
+    policy = build_policy(args, env, "cuda")
+    policy.model.load_state_dict(state)
+    sizes, solve = set(), newton_al.block_tridiag_solve
+    newton_al.block_tridiag_solve = lambda D, O, b: (sizes.add(D.shape[-1]), solve(D, O, b))[1]
+    before = policy_counts(policy)
+    reset_counts(bt)
+    try:
+        res = eval_policy(args, env, policy, n_episodes=PENDULUM_EPISODES, ep_len=PENDULUM_TICKS,
+                          seed=0, device="cuda")
+    finally:
+        newton_al.block_tridiag_solve = solve
+    res["counts"] = path_counts(bt, policy, before)
+    res["block_sizes"] = sorted(sizes)
+    return res
+
+
 def action_gap(u_card, u_cpu):
     gap = (u_card.double().cpu() - u_cpu.double()).abs().amax(dim=-1)
     return {"median": float(gap.median()), "p75": float(gap.quantile(0.75)),
@@ -286,22 +506,23 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
-    import dataclasses
-
+    from deqmpc_tpu_torch.data import get_gt_data, sample_trajectory
     from deqmpc_tpu_torch.envs import make_env
     from deqmpc_tpu_torch.ops import block_tridiag as bt
     from deqmpc_tpu_torch.ops import tridiag
     from deqmpc_tpu_torch.policies import DEQMPCPolicy, build_policy
     from deqmpc_tpu_torch.solvers import newton_al
+    from deqmpc_tpu_torch.training import train
     from deqmpc_tpu_torch.training.eval import card_info, eval_policy
     from deqmpc_tpu_torch.utils.checkpoint import load_checkpoint
 
     smi = card_info()["nvidia_smi"]
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"[chip_smoke] nvidia-smi: {smi}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
+          f"CUDA {torch.version.cuda}, numpy {np.__version__}", flush=True)
     report = {"device": {"kind": kind, "count": count, "nvidia_smi": smi,
-                         "torch": torch.__version__, "cuda": torch.version.cuda}}
+                         "torch": torch.__version__, "cuda": torch.version.cuda,
+                         "numpy": np.__version__}}
 
     # -- 2. build -----------------------------------------------------------
     phase("build")
@@ -422,8 +643,7 @@ def main() -> int:
           "the tick-0 check passed a planted fault (O transposed)")
 
     phase("serve: closed loop", episodes=EPISODES, ticks=TICKS)
-    bt.block_tridiag_solve.launches = 0
-    bt.block_tridiag_solve.launches_by_kernel = dict.fromkeys(bt.KERNELS, 0)
+    reset_counts(bt)
     steps0 = policy.newton_steps
     res = eval_policy(args, env, policy, n_episodes=EPISODES, ep_len=TICKS, seed=0,
                       device="cuda")
@@ -441,13 +661,74 @@ def main() -> int:
     check(by_kernel["warp"] == launches and by_kernel["block"] == 0,
           f"the served path did not go through the warp kernel alone: {by_kernel}")
 
-    # -- 6. result ------------------------------------------------------------
+    # -- 6. train, config #4 ----------------------------------------------------
+    phase("train: config #4", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
+
+    def expert_batch(env_name, env_, seed):
+        gt, _ = train.split_episodes(get_gt_data(env_))
+        return train.preprocess_batch(env_name, env_.nx,
+                                      sample_trajectory(gt, TRAIN_BSZ, 1, args["T"],
+                                                        np.random.default_rng(seed)))
+
+    tr4 = train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env,
+                        expert_batch(args["env"], env, 0))
+    report["train_rexquad"] = tr4
+    for s_ in tr4["steps"]:
+        print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+    phase("train: config #4 done", **{k: v for k, v in tr4.items() if k != "steps"})
+    for i, s_ in enumerate(tr4["steps"]):
+        check(np.isfinite(s_["loss"]) and np.isfinite(s_["grad_norm"]),
+              f"step {i}: loss {s_['loss']}, grad norm {s_['grad_norm']}")
+        check(s_["backward_solves"] == tr4["deq_iter"]
+              and s_["launches_by_kernel"]["warp"] == s_["newton_steps"] + s_["retries"]
+              + s_["backward_solves"] and s_["launches_by_kernel"]["block"] == 0,
+              f"step {i}: solves and launches disagree: {s_}")
+    check_all_warp(tr4["counts"], "config-#4 training")
+    check(tr4["counts"]["backward_solves"] == TRAIN_STEPS * tr4["deq_iter"],
+          f"{tr4['counts']['backward_solves']} backward solves in {TRAIN_STEPS} steps")
+    for dtype, key in ((torch.float32, "step0_gap_card_vs_cpu"),
+                       (torch.float64, "step0_gap_card_vs_cpu_f64")):
+        for k, lim in STEP0_RTOL[dtype].items():
+            check(tr4[key][k] <= lim,
+                  f"step 0 {k} ({dtype}), card vs CPU: relative gap {tr4[key][k]} > {lim}")
+    check(tr4["step0_gap_planted_sign_flip_f64"]["grad_norm"]
+          > STEP0_RTOL[torch.float64]["grad_norm"],
+          f"the f64 step-0 check passed a planted fault: {tr4['step0_gap_planted_sign_flip_f64']}")
+
+    # -- 7. train, config #1 ----------------------------------------------------
+    phase("train: config #1", bsz=TRAIN_BSZ, steps=PENDULUM_TRAIN_STEPS)
+    penv = make_env("pendulum")
+    tr1 = train_pendulum(bt, train, build_policy, penv, expert_batch("pendulum", penv, 1))
+    report["train_pendulum"] = tr1
+    phase("train: config #1 done", **tr1)
+    check(all(np.isfinite(tr1["losses"])) and all(np.isfinite(tr1["grad_norms"])),
+          f"non-finite loss or gradient norm: {tr1}")
+    check(tr1["losses"][-1] < tr1["losses"][0], f"the loss did not fall: {tr1['losses']}")
+    check_all_warp(tr1["counts"], "config-#1 training")
+    check(tr1["counts"]["backward_solves"] == PENDULUM_TRAIN_STEPS * tr1["deq_iter"],
+          f"{tr1['counts']['backward_solves']} backward solves in {PENDULUM_TRAIN_STEPS} steps")
+
+    # -- 8. serve pendulum_deqmpc -------------------------------------------------
+    phase("serve: pendulum closed loop", episodes=PENDULUM_EPISODES, ticks=PENDULUM_TICKS)
+    sp = serve_pendulum(bt, newton_al, build_policy, load_checkpoint, make_env, eval_policy)
+    report["serve_pendulum"] = sp
+    phase("serve: pendulum done", **sp)
+    check(sp["n_nan_episodes"] == 0 and np.isfinite(sp["mean_reward"]),
+          "non-finite states or rewards in the pendulum closed loop")
+    check(sp["block_sizes"] == [3], f"pendulum solves at block sizes {sp['block_sizes']}")
+    check_all_warp(sp["counts"], "pendulum closed loop")
+
+    # -- 9. result ------------------------------------------------------------
     main_t = timings[0]
+    paths = {"train_rexquad": tr4["counts"], "train_pendulum": tr1["counts"],
+             "serve_rexquad": {"launches_by_kernel": by_kernel},
+             "serve_pendulum": sp["counts"]}
     kernels = [{
         "name": f"block_tridiag_solve[{kernel}]", "route": "cuda",
         "source": "deqmpc_tpu_torch/ops/csrc/block_tridiag.cu",
         "replaces": "deqmpc_tpu/ops/pallas_tridiag.py:100",
-        "launches": by_kernel[kernel],
+        "launches": tr4["counts"]["launches_by_kernel"][kernel],
+        "launches_by_path": {k: v["launches_by_kernel"][kernel] for k, v in paths.items()},
         "max_abs_err": worst[f"{kernel}/{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}x{MAIN_SHAPE[2]}/torch.float32"],
         "ms": main_t[f"{kernel}_ms"], "device_ms": main_t[f"{kernel}_device_ms"],
         "device_ms_by_shape": {f"{r['shape']}/{r['dtype']}": r[f"{kernel}_device_ms"]

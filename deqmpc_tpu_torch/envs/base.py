@@ -32,6 +32,7 @@ class Env:
     nu: int
     nq: int
     dt: float
+    spec_id: str = "Env-v0"  # names the env's expert data file
     _max_episode_steps: int = 200
 
     def _const(self, name: str, like: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ class PendulumEnv(Env):
         self.max_speed = max_speed
         self.stabilization = stabilization
         self._max_episode_steps = 200
+        self.spec_id = "Pendulum-v0" + ("-stabilize" if stabilization else "")
         self.action_space = Spaces(np.array([-max_torque]), np.array([max_torque]))
         self.Qlqr = np.array([10.0, 1.0], dtype=np.float64)
         self.Rlqr = np.array([1e-6], dtype=np.float64)

@@ -36,6 +36,7 @@ class RexQuadrotor(Env):
         self.kf, self.bf, self.km = kf, bf, km
         self.act_scale = 100.0
         self._max_episode_steps = max_steps
+        self.spec_id = "RexQuadrotor-v0"
         # motor positions on the diagonals (unit vectors * motor_dist)
         ss = np.array([[1.0, 1, 0], [1.0, -1, 0], [-1.0, -1, 0], [-1.0, 1, 0]])
         self.arms = motor_dist * ss / np.linalg.norm(ss, axis=-1, keepdims=True)

@@ -1,11 +1,15 @@
 """DEQ layer: the fixed-point trajectory-proposal network (gcn trunk).
 
-Port of `DEQLayerConfig` and `DEQLayer` (`deqmpc_tpu/models/deq_layer.py:80-302`)
-for serving: the input encoder embeds the observation and the carried
-trajectory, `_fixed_point` runs Anderson on the cell and then applies
-the cell three more times (the phantom-gradient re-applications of the
-JAX training path, plain applications here), and `_decode` turns the
-(T-1) x nx head output into the reference trajectory.
+Port of `DEQLayerConfig` and `DEQLayer` (`deqmpc_tpu/models/deq_layer.py:80-302`):
+the input encoder embeds the observation and the carried trajectory,
+`_fixed_point` runs Anderson on the cell and then applies the cell three
+more times, and `_decode` turns the (T-1) x nx head output into the
+reference trajectory.
+
+Gradient ("phantom gradient", `deq_layer.py:254-272`): Anderson runs
+under `torch.no_grad()` from a detached z, its result is detached, and
+only the three re-applications of the cell carry a gradient. It is not
+implicit differentiation, and no gradient reaches the incoming z.
 
 Decode convention (`deq_layer.py:274-285`): positions integrate from the
 current state (x_ref_pos = x0_pos + dq*dt), velocities are direct
@@ -20,7 +24,7 @@ import torch
 from torch import nn
 
 from ..solvers.fp import anderson
-from .blocks import ConvCell, ConvInput, ConvOutput
+from .blocks import ConvCell, ConvInput, ConvOutput, GroupNorm, LayerNorm, UnfoldConv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,20 +61,54 @@ class DEQLayer(nn.Module):
         # forward exactly as in the JAX package (`deq_layer.py:154-163`)
         self.iter_emb = nn.Parameter(torch.zeros(c.deq_iter, c.T - 1, c.hdim))
 
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """Seeded initialisation for a fresh run. Every draw is made on the
+        CPU from `generator`, so one seed gives the same weights on any
+        device. The distributions are flax's (`models/blocks.py` of the
+        JAX package): Dense and conv kernels lecun-normal (a normal
+        truncated at two standard deviations, variance 1/fan_in), the time
+        embedding N(0, 1), biases, norm offsets and `iter_emb` zero, norm
+        scales one. The draws are not flax's: a port run and a JAX run
+        from the same seed start from different weights."""
+
+        def lecun_normal(p, fan_in):
+            std = fan_in ** -0.5 / 0.87962566103423978
+            w = torch.empty(p.shape, dtype=torch.float64)
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+            p.copy_(w)
+
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                lecun_normal(module.weight, module.in_features)
+                module.bias.zero_()
+            elif isinstance(module, UnfoldConv):
+                k, cin, _ = module.kernel.shape
+                lecun_normal(module.kernel, k * cin)
+                module.bias.zero_()
+            elif isinstance(module, (LayerNorm, GroupNorm)):
+                module.scale.fill_(1.0)
+                module.bias.zero_()
+        t_emb = self.input.time_emb
+        t_emb.copy_(torch.randn(t_emb.shape, generator=generator, dtype=torch.float64))
+        self.iter_emb.zero_()
+
     def init_z(self, bsz: int, dtype=None, device=None):
         c = self.cfg
         return torch.zeros((bsz, c.T - 1, c.hdim), dtype=dtype or self.iter_emb.dtype,
                            device=device or self.iter_emb.device)
 
     def _fixed_point(self, inj, z):
-        """Anderson on the cell, then three plain cell applications."""
+        """Anderson on the cell without a gradient, then three cell
+        applications with one (the phantom gradient)."""
         c = self.cfg
 
         def f(zz):
             return self.cell(inj, zz)
 
-        z_star, _ = anderson(f, z, m=c.fp_m, max_steps=c.fp_max_steps)
-        return f(f(f(z_star)))
+        with torch.no_grad():
+            z_star, _ = anderson(f, z.detach(), m=c.fp_m, max_steps=c.fp_max_steps)
+        return f(f(f(z_star.detach())))
 
     def _decode(self, obs, x_prev, dx_ref):
         """(T-1) x nx deltas -> x_ref (bsz, T, nx) with obs prepended."""

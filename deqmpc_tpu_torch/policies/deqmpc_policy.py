@@ -2,10 +2,12 @@
 
 Port of `PolicyConfig`, `DEQMPCPolicy.__init__`, `forward` and
 `_deqmpc_iter` (`deqmpc_tpu/policies/deqmpc_policy.py:43-236`) for the
-cold-start forward: N = deq_iter rounds of {network proposal -> AL
-tracking solve}; the solver's trajectory feeds the next round's
-network input, and the AL state (duals, penalty, iterate) carries from
-round to round. `build_policy` mirrors `training/train.py:191-246` for
+cold-start forward of serving and training: N = deq_iter rounds of
+{network proposal -> AL tracking solve}; the solver's trajectory feeds
+the next round's network input with its gradient (as in JAX), and the
+AL state (duals, penalty, iterate) carries from round to round. The
+policy also carries what the loss reads (`deq_reg`, `loss_type`,
+`out_type`). `build_policy` mirrors `training/train.py:191-246` for
 the base variant. The streaming forward and the other variants wait for
 later slices.
 """
@@ -38,6 +40,9 @@ class PolicyConfig:
     max_newton_steps: int = 4
     rho_max: float = 1e8
     dyn_res_tol: float = 1e-3
+    deq_reg: float = 0.1
+    out_type: int = 1        # policy_out_type
+    loss_type: str = "l1"
 
 
 class DEQMPCPolicy:
@@ -46,6 +51,7 @@ class DEQMPCPolicy:
         self.env = env
         self.nx, self.nu, self.nq, self.T = cfg.nx, cfg.nu, cfg.nq, cfg.T
         self.deq_iter = cfg.deq_iter
+        self.out_type, self.loss_type, self.deq_reg = cfg.out_type, cfg.loss_type, cfg.deq_reg
         self.device = resolve_device(device)
         mcfg = DEQLayerConfig(
             nx=cfg.nx, nu=cfg.nu, nq=cfg.nq, T=cfg.T, dt=cfg.dt, hdim=cfg.hdim,
@@ -59,15 +65,36 @@ class DEQMPCPolicy:
             dyn_res_tol=cfg.dyn_res_tol, device=self.device,
         )
 
+    def init(self, seed: int) -> "DEQMPCPolicy":
+        """Seeded fresh parameters (`DEQLayer.reset_parameters`: flax's
+        distributions, not flax's draws)."""
+        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        return self
+
+    @property
+    def newton_solver(self):
+        return self.tracking_mpc.ctrl.newton
+
     @property
     def newton_steps(self) -> int:
         """Newton steps taken by this policy's solver so far."""
-        return self.tracking_mpc.ctrl.newton.steps
+        return self.newton_solver.steps
 
     @property
     def newton_retries(self) -> int:
         """Jittered re-solves after a non-finite Newton update so far."""
-        return self.tracking_mpc.ctrl.newton.retries
+        return self.newton_solver.retries
+
+    @property
+    def backward_solves(self) -> int:
+        """Implicit-backward solves so far (one per round in training)."""
+        return self.newton_solver.backward_solves
+
+    def backward_zeroed_share(self) -> float:
+        """Share of the implicit backward's samples whose gradient was set
+        to 0 (a non-positive-definite Hessian); reads the device once."""
+        n = self.newton_solver
+        return float(n.backward_zeroed) / n.backward_samples if n.backward_samples else 0.0
 
     def forward(self, obs) -> Dict:
         """Cold-start forward (`deqmpc_policy.py:143-161`). obs (bsz, nx)
@@ -102,7 +129,8 @@ def build_policy(args: Mapping[str, Any], env, device="cuda") -> DEQMPCPolicy:
         "deq": (True,), "qp_solve": (True,), "lastqp_solve": (False,),
         "solver_type": ("al",), "policy_variant": ("base",), "addmem": (False,),
         "streaming": (False,), "deq_type": ("deq",), "layer_type": ("gcn",),
-        "fp_type": ("anderson",), "deq_out_type": (1,), "policy_out_type": (1,),
+        "fp_type": ("anderson",), "deq_out_type": (1,), "grad_type": ("fp_grad",),
+        "recompute_Qq": (False,), "compute_dtype": ("f32",),
     }
     for key, ok in unsupported.items():
         if key in a and a[key] not in ok:
@@ -118,5 +146,7 @@ def build_policy(args: Mapping[str, Any], env, device="cuda") -> DEQMPCPolicy:
         fp_max_steps=int(a.get("max_steps", 10)), fp_m=a.get("m", 5),
         kernel_width=a.get("kernel_width", 3), al_iter=2,
         solver_dtype=torch.float64 if double else torch.float32, rho_max=rho_max,
+        deq_reg=a.get("deq_reg", 0.1), out_type=a.get("policy_out_type", 1),
+        loss_type=a.get("loss_type", "l1"),
     )
     return DEQMPCPolicy(cfg, env, device=device)

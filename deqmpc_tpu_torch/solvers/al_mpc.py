@@ -1,11 +1,18 @@
 """Batched augmented-Lagrangian MPC solver: the outer AL loop.
 
 Port of `ALMPC.__init__`, `init_state` and `solve`
-(`deqmpc_tpu/solvers/al_mpc.py:64-322`) for the cold-start serving
-path: each AL iteration runs NewtonAL from the current iterate, then
-updates the duals (inequality duals clamped at 0) and multiplies the
-penalty by 10 up to `rho_max`. The streaming, linearize-once,
-cost-refresh, history and obstacle options wait for later slices.
+(`deqmpc_tpu/solvers/al_mpc.py:64-322`) for the cold-start path of
+serving and training: each AL iteration runs NewtonAL from the current
+iterate, then updates the duals (inequality duals clamped at 0) and
+multiplies the penalty by 10 up to `rho_max`.
+
+The gradient is cut where the JAX package cuts it (`al_mpc.py:247-248,
+262,271,315`): the starting trajectory, every Newton input iterate, the
+iterate of the dual/penalty update and the returned state's x and u are
+detached. So only the last AL iteration's Newton call receives a
+cotangent, through its implicit backward into the cost (Q, q). The
+streaming, linearize-once, cost-refresh, history and obstacle options
+wait for later slices.
 """
 from __future__ import annotations
 
@@ -64,14 +71,16 @@ class ALMPC:
         q = cost.q.to(dtype)
         bsz = x0.shape[0]
         has = state.has_init[:, None, None]
-        x = torch.where(has, state.x, x_init.to(dtype))
-        u = torch.where(has, state.u, u_init.to(dtype))
+        x = torch.where(has, state.x, x_init.detach().to(dtype))
+        u = torch.where(has, state.u, u_init.detach().to(dtype))
         lam, rho = state.lam, state.rho
         xu = torch.cat([x, u], dim=-1)
         neq = self.T * nx
         for _ in range(al_iter):
-            xu, _ = self.newton(xu, x0, lam, rho, Q, q)
-            res, _ = full_residuals(self.dyn, xu[..., :nx], xu[..., nx:], x0,
+            xu, _ = self.newton(xu.detach(), x0, lam, rho, Q, q)
+            # the dual / penalty update takes no gradient (`al_mpc.py:269-271`)
+            xu_sg = xu.detach()
+            res, _ = full_residuals(self.dyn, xu_sg[..., :nx], xu_sg[..., nx:], x0,
                                     self.u_lower, self.u_upper)
             lam_next = lam + rho * res
             lam = torch.cat([lam_next[:, :neq], torch.clamp(lam_next[:, neq:], min=0.0)],
@@ -79,6 +88,6 @@ class ALMPC:
             # cap the penalty: in f32 an uncapped rho overflows the merit
             rho = torch.clamp(rho * 10.0, max=self.rho_max)
         x, u = xu[..., :nx], xu[..., nx:]
-        new_state = ALState(lam=lam, rho=rho, x=x, u=u,
+        new_state = ALState(lam=lam, rho=rho, x=x.detach(), u=u.detach(),
                             has_init=torch.ones((bsz,), dtype=torch.bool, device=x0.device))
         return x, u, torch.zeros((bsz,), dtype=torch.bool, device=x0.device), new_state

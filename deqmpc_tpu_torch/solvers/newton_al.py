@@ -1,6 +1,7 @@
-"""NewtonAL: the inner Newton solver on the AL merit, forward only.
+"""NewtonAL: the inner Newton solver on the AL merit, with its implicit
+backward.
 
-Port of the forward of `deqmpc_tpu/solvers/newton_al.py:58-201`:
+Port of `deqmpc_tpu/solvers/newton_al.py:58-233`. The forward:
 
   * at most `max_newton_steps` Newton steps with the same global exits
     as the JAX `lax.while_loop` (dyn-res stall or convergence, small
@@ -15,8 +16,15 @@ Port of the forward of `deqmpc_tpu/solvers/newton_al.py:58-201`:
     batched merit call; NaN merits never win, and only improvements are
     accepted (`newton_al.py:130-147`).
 
-The implicit backward (`newton_al.py:203-233`) waits for the training
-slice.
+The backward is the JAX package's `custom_vjp` (`newton_al.py:203-232`)
+as a `torch.autograd.Function`: the forward loop runs on detached inputs,
+then the Hessian blocks (D, O) are assembled once more at the final
+iterate and saved. The backward solves dx = -H^{-1} g_out with the same
+`block_tridiag_solve` (the CUDA kernel on the card; no jittered retry),
+sets non-finite entries to 0, and returns dQ = dx * xu_out, dq = dx;
+xu, x0, lam and rho get zero cotangents. Under `torch.inference_mode()`,
+or whenever neither Q nor q needs a gradient, the loop runs alone, with
+no extra assembly.
 """
 from __future__ import annotations
 
@@ -36,7 +44,10 @@ class NewtonAL:
     dyn_jac(x, u): -> (x_next, F) with F = [A B]: (..., nx, nx+nu).
     `steps` counts the Newton steps taken, so a run can check that each
     one went through the solve kernel; `retries` counts the jittered
-    re-solves."""
+    re-solves; `backward_solves` counts the implicit backward's solves,
+    `backward_samples` the samples they solved and `backward_zeroed` (a
+    device tensor once a backward ran, to read without a sync per solve)
+    those whose gradient was set to 0."""
 
     def __init__(self, cfg: NewtonALConfig, dyn: Callable, dyn_jac: Callable,
                  u_lower, u_upper):
@@ -47,6 +58,9 @@ class NewtonAL:
         self.u_upper = u_upper
         self.steps = 0
         self.retries = 0
+        self.backward_solves = 0
+        self.backward_samples = 0
+        self.backward_zeroed = 0
 
     # -- pieces -----------------------------------------------------------------
     def _merit(self, xu, Q, q, x0, lam, rho):
@@ -110,10 +124,17 @@ class NewtonAL:
 
     # -- forward ----------------------------------------------------------------
     def __call__(self, xu, x0, lam, rho, Q, q):
+        """(xu_out, status). Differentiable in Q and q when grad mode is on."""
+        if torch.is_grad_enabled() and (Q.requires_grad or q.requires_grad):
+            return _NewtonALFunction.apply(self, xu, x0, lam, rho, Q, q)
+        return self._forward(xu, x0, lam, rho, Q, q)
+
+    def _forward(self, xu, x0, lam, rho, Q, q):
         # The solver runs in full f32 on the card: the counterpart of the
         # JAX package's default_matmul_precision("highest") scope
         # (`newton_al.py:149-156`). The flags are process-wide in PyTorch,
-        # so the DEQ network's matmuls run in full f32 too.
+        # so the DEQ network's matmuls, and in training its backward, run
+        # in full f32 too: PyTorch's default for matmuls, so no number moves.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         cfg = self.cfg
@@ -137,3 +158,47 @@ class NewtonAL:
             if bool(stop):
                 break
         return xu, status
+
+
+def implicit_grads(D, O, xu_out, g_out):
+    """The implicit backward at the solution (`newton_al.py:211-222`):
+    dx = -H^{-1} g_out, non-finite entries set to 0 (a sample whose
+    Hessian is not positive definite gets no gradient instead of
+    poisoning the batch). Returns (dQ, dq) = (dx * xu_out, dx) and the
+    number of samples with a non-finite entry, as a device tensor."""
+    dx = -block_tridiag_solve(D.contiguous(), O.contiguous(), g_out.contiguous())
+    finite = torch.isfinite(dx)
+    zeroed = (~finite).flatten(1).any(dim=1).sum()
+    dx = torch.where(finite, dx, torch.zeros_like(dx))
+    return dx * xu_out, dx, zeroed
+
+
+class _NewtonALFunction(torch.autograd.Function):
+    """NewtonAL with the JAX package's implicit VJP: only Q and q get
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, newton, xu, x0, lam, rho, Q, q):
+        xu_out, status = newton._forward(xu, x0, lam, rho, Q, q)
+        # Hessian blocks at the solution, for the backward
+        _, D, O, _, _ = newton._assemble(xu_out, Q, q, x0, lam, rho)
+        ctx.newton = newton
+        ctx.zero_cots = [(t.shape, t.dtype, t.device) for t in (xu, x0, lam, rho)]
+        ctx.save_for_backward(D, O, xu_out)
+        ctx.mark_non_differentiable(status)
+        return xu_out, status
+
+    @staticmethod
+    def backward(ctx, g_out, _status_cot):
+        D, O, xu_out = ctx.saved_tensors
+        dQ, dq, zeroed = implicit_grads(D, O, xu_out, g_out)
+        newton = ctx.newton
+        newton.backward_solves += 1
+        newton.backward_samples += xu_out.shape[0]
+        newton.backward_zeroed = newton.backward_zeroed + zeroed
+        # xu, x0, lam and rho get zero cotangents, as in the JAX package
+        zeros = [torch.zeros(shape, dtype=dtype, device=device) if need else None
+                 for (shape, dtype, device), need in zip(ctx.zero_cots,
+                                                         ctx.needs_input_grad[1:5])]
+        return (None, *zeros, dQ if ctx.needs_input_grad[5] else None,
+                dq if ctx.needs_input_grad[6] else None)

@@ -1,1 +1,1 @@
-"""Closed-loop evaluation of the port."""
+"""Training and closed-loop evaluation of the port."""

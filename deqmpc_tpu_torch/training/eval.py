@@ -3,11 +3,16 @@
 Port of `eval_policy`, `final_state_errors` and `success_dims_for_env`
 (`deqmpc_tpu/training/eval.py:21-134`) for policies trained without
 streaming: at each env step the policy runs a cold-start forward and
-the first action of its last solve is applied.
+the first action of its last solve is applied. `--ckpt` names a JAX
+package checkpoint (`checkpoints/rexquad_deqmpc`,
+`checkpoints/pendulum_deqmpc`) or a port checkpoint written by
+`training/train.py --save`. `final_dist_sem` is the standard error of the
+mean final distance over episodes.
 
-CLI:
+CLI (`--ep_len` defaults to the env's `_max_episode_steps`: 100 ticks for
+RexQuadrotor, 200 for the pendulum, as the JAX eval runs them):
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/rexquad_deqmpc \
-      --episodes 100 --ep_len 100 [--device cpu] [--out result.json]
+      --episodes 100 [--device cpu] [--out result.json]
 """
 from __future__ import annotations
 
@@ -66,6 +71,8 @@ def eval_policy(args: Dict, env, policy, n_episodes: int = 32,
     env_name = args.get("env", "")
     err = final_state_errors(xs[:, -1], env.targ_pos, env_name)
     final_dist = np.linalg.norm(err, axis=-1)
+    finite = final_dist[np.isfinite(final_dist)]
+    sem = float(np.std(finite, ddof=1) / np.sqrt(finite.size)) if finite.size > 1 else float("nan")
     nq = min(getattr(env, "nq", env.nx // 2), env.nx)
     dims = success_dims_for_env(env_name, env.nx, nq)
     success = np.linalg.norm(err[:, dims], axis=-1) < 0.25
@@ -73,6 +80,7 @@ def eval_policy(args: Dict, env, policy, n_episodes: int = 32,
         "mean_reward": float(np.nanmean(rewards)),
         "final_dist_mean": float(np.nanmean(final_dist)),
         "final_dist_median": float(np.nanmedian(final_dist)),
+        "final_dist_sem": sem,
         "success_rate": float(np.mean(success)),
         "n_nan_episodes": int(np.sum(~np.isfinite(xs[:, -1]).all(axis=-1))),
         "tick_s_median": float(np.median(tick_s)),

@@ -1,4 +1,5 @@
-"""Reads the JAX package's checkpoints without JAX, flax or msgpack.
+"""Reads the JAX package's checkpoints without JAX, flax or msgpack, and
+writes and reads the port's own.
 
 A checkpoint (`deqmpc_tpu/training/train.py:441-490`) is a pickle of a
 plain dict: {"params": bytes, "opt_state": bytes | None, "step": int,
@@ -7,14 +8,20 @@ tree: nested maps with string keys and array leaves, each array an ext
 value of type 1 that packs (shape, dtype name, raw bytes) with msgpack
 again. `msgpack_restore` below decodes that subset of msgpack (maps,
 arrays, strings, bin, ints, floats, nil, bool and ext type 1);
-`params_from_jax` maps the tree onto the port's `DEQLayer`, and
-`load_checkpoint` does both.
+`params_from_jax` maps the tree onto the port's `DEQLayer`.
+
+A port checkpoint (`save_checkpoint`) is a `torch.save` zip of
+{"format", "model" (the `DEQLayer` state dict), "optimizer" (the
+optimizer's state dict), "args", "step"}, read back with
+`torch.load(weights_only=True)`. `load_checkpoint` reads either kind.
 """
 from __future__ import annotations
 
 import io
+import os
 import pickle
 import struct
+import zipfile
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -178,9 +185,42 @@ def read_checkpoint(path) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     return msgpack_restore(blob["params"]), dict(blob.get("args") or {})
 
 
+PORT_FORMAT = "deqmpc_tpu_torch/1"
+
+
+def save_checkpoint(path, model, optimizer=None, step: int = 0, args=None) -> None:
+    """Write a port checkpoint: the model's and the optimizer's state
+    dicts, the run's args (plain values) and the step."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    blob = {"format": PORT_FORMAT,
+            "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "optimizer": optimizer.state_dict() if optimizer is not None else None,
+            "args": dict(args or {}), "step": int(step)}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+
+
+def is_port_checkpoint(path) -> bool:
+    """A port checkpoint is a zip (torch.save); a JAX one is a pickle."""
+    return zipfile.is_zipfile(path)
+
+
+def read_port_checkpoint(path) -> Dict[str, Any]:
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if blob.get("format") != PORT_FORMAT:
+        raise ValueError(f"{path}: not a {PORT_FORMAT} checkpoint")
+    return blob
+
+
 def load_checkpoint(path, device="cuda") -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-    """Returns (state dict for the policy's `DEQLayer`, on `device`; args)."""
+    """Returns (state dict for the policy's `DEQLayer`, on `device`; args),
+    from a JAX-package checkpoint or a port checkpoint."""
     device = resolve_device(device)
-    tree, args = read_checkpoint(path)
-    state = {k: v.to(device) for k, v in params_from_jax(tree).items()}
-    return state, args
+    if is_port_checkpoint(path):
+        blob = read_port_checkpoint(path)
+        state, args = blob["model"], dict(blob["args"])
+    else:
+        tree, args = read_checkpoint(path)
+        state = params_from_jax(tree)
+    return {k: v.to(device) for k, v in state.items()}, args

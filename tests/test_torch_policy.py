@@ -1,6 +1,8 @@
 """The slice as a whole: the port's DEQ-MPC policy forward against the JAX
 package in f64, the closed-loop eval on the CPU, and the port's
 independence from JAX."""
+import dataclasses
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +29,7 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 CKPT = REPO / "checkpoints" / "rexquad_deqmpc"
+PENDULUM_CKPT = REPO / "checkpoints" / "pendulum_deqmpc"
 JAX_ENVS = {"pendulum": JaxPendulum, "rexquadrotor": JaxQuad}
 
 
@@ -75,6 +78,47 @@ def test_eval_policy_two_ticks_on_cpu():
     assert 0.0 <= res["success_rate"] <= 1.0 and res["final_dist_mean"] > 0
     assert bt.block_tridiag_solve.launches == before  # the CPU runs the plain solve
     assert policy.newton_steps > 0
+
+
+def test_pendulum_checkpoint_first_actions_match_jax_in_f64():
+    """`pendulum_deqmpc` at full width (hdim 256, N 6), loaded by each
+    package's own reader, tick 0 of 4 seeded start states in f64: the
+    first actions agree within the f64 tick-0 tolerance of PERF.md
+    (median <= 1e-4, 75th percentile <= 1e-3 of the per-state gap)."""
+    from deqmpc_tpu.training.train import load_checkpoint as jax_load_checkpoint
+
+    state, args = load_checkpoint(PENDULUM_CKPT, "cpu")
+    env = make_env(args["env"])
+    pol = build_policy(args, env, "cpu")
+    cfg = pol.cfg
+    assert (cfg.hdim, cfg.deq_iter, cfg.T) == (256, 6, 5)
+    pol = DEQMPCPolicy(dataclasses.replace(cfg, solver_dtype=torch.float64), env, device="cpu")
+    pol.model.double()
+    pol.model.load_state_dict(state)
+    jpol = JaxPolicy(JaxPolicyConfig(nx=env.nx, nu=env.nu, nq=cfg.nq, T=cfg.T, dt=env.dt,
+                                     hdim=cfg.hdim, deq_iter=cfg.deq_iter, rho_max=cfg.rho_max,
+                                     solver_dtype=jnp.float64), JaxPendulum())
+    params, _, _, _ = jax_load_checkpoint(str(PENDULUM_CKPT), jpol.init(jax.random.PRNGKey(0)))
+    params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), params)
+    obs = env.reset(torch.Generator().manual_seed(2), 4, device="cpu", dtype=torch.float64)
+    out_ref, _ = jax.jit(jpol.forward)(params, jnp.asarray(obs.numpy()))
+    with torch.inference_mode():
+        u = pol.forward(obs)["trajs"][-1][2][:, 0].numpy()
+    gap = np.abs(u - np.asarray(out_ref["trajs"][-1][2][:, 0])).max(axis=-1)
+    assert np.isfinite(u).all()
+    assert np.median(gap) <= 1e-4 and np.quantile(gap, 0.75) <= 1e-3, gap
+
+
+def test_eval_cli_on_pendulum_reports_the_mean_and_its_error(tmp_path):
+    out = tmp_path / "eval.json"
+    res = port_eval.main(["--ckpt", str(PENDULUM_CKPT), "--episodes", "2", "--ep_len", "3",
+                          "--device", "cpu", "--out", str(out)])
+    assert json.loads(out.read_text()) == res
+    assert {"mean_reward", "final_dist_mean", "final_dist_median", "final_dist_sem",
+            "success_rate", "n_nan_episodes", "tick_s_median", "ckpt", "episodes", "ep_len",
+            "seed", "device", "wall_s"} <= set(res)
+    assert res["n_nan_episodes"] == 0 and res["ep_len"] == 3
+    assert np.isfinite(res["final_dist_sem"]) and res["final_dist_sem"] >= 0
 
 
 def test_success_dims_and_errors():
