@@ -11,14 +11,17 @@ Phases, each announced on a line of its own with the seconds since start:
   3. kernel: each kernel against the plain PyTorch version on the card,
      at (bsz, T, n) = (1024,5,16), (128,5,3) (training, config #1),
      (128,10,5), (64,20,18), (4,200,18) (does not fit shared memory),
-     (32,5,16) (serving), (128,5,16) (training, config #4), (32,5,3)
-     (serving the pendulum) and (8,5,40) (n > 32), in f32 and f64, with
-     one non-SPD sample per case that must come back NaN while its
-     neighbours stay finite: the kernel the wrapper picks at every shape,
-     and the block kernel by name at the shapes the warp kernel takes;
-     then, at the five shapes of TIMED_SHAPES, both kernels'
-     call time and device time (torch.profiler) beside the plain
-     version, the dense-Cholesky library call and the bound;
+     (32,5,16) (serving), (128,5,16) (training, configs #4 and #5),
+     (32,5,3) (serving the pendulum), (8,5,40) (n > 32), (1,5,16) and
+     (256,5,16) (bench_streaming's vehicle and fleet) and (3,5,16) (a CTA
+     of the warp kernel part empty), in f32 and f64, with one non-SPD
+     sample per case that must come back NaN while its neighbours stay
+     finite (a batch of one: checked SPD, then not SPD): the kernel the
+     wrapper picks at every shape, and the block kernel by name at the
+     shapes the warp kernel takes; then, at the seven shapes of
+     TIMED_SHAPES, both kernels' call time and device time
+     (torch.profiler) beside the plain version, the dense-Cholesky
+     library call and the bound;
   4. load: `checkpoints/rexquad_deqmpc` through the port's own reader,
      and the policy at full width;
   5. serve: tick 0's first actions on the card against the same forward
@@ -48,7 +51,25 @@ Phases, each announced on a line of its own with the seconds since start:
   7. train, config #1 (pendulum, a seeded fresh policy at full width,
      bsz 128): 5 steps on one batch; the loss must fall;
   8. serve `checkpoints/pendulum_deqmpc`: 32 episodes x 20 closed-loop
-     ticks, no NaN, every solve through the warp kernel at n = 3.
+     ticks, no NaN, every solve through the warp kernel at n = 3;
+  9. serve `checkpoints/rexquad_streaming` (config #5) warm-started: tick
+     0 and 2 warm ticks of 4 start states on the card against the CPU, f32
+     and f64, tick 0 within ACTION_TOL and the warm ticks within
+     WARM_ACTION_TOL, beside the card's own f64 move under observations
+     moved by 1e-12 and the card's f64 ticks with the plain solve in place
+     of the kernel; a planted fault (the carry left unshifted) that the f64
+     warm ticks must reject; then 32 episodes x 10
+     ticks through `eval_policy` (tick 0 cold, the rest warm), the counts
+     set to 0 just before: no NaN, every solve through the warp kernel,
+     each tick's Newton steps, retries and stopped share printed;
+ 10. train config #5 from `checkpoints/rexquad_streaming`: the streaming
+     step (a cold forward and L = 2 warm forwards on a bsz-128 batch of
+     T + L = 7 expert states, the losses summed); step 0 card vs CPU (f32
+     loss; f64 loss and gradient norm; the planted sign flip rejected),
+     then 3 steps as for config #4, with one implicit backward per round
+     of each forward (18 a step);
+ 11. `training/bench_streaming.py` at bsz 1 and 256, BENCH_REPS reps: its
+     JSON line (cold and warm tick times, realtime margin).
 Before them, one `[chip_smoke] report {...}` line holds every number
 measured. The last three lines are the nvidia-smi line, the kernels JSON
 and {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -65,19 +86,29 @@ import torch
 T0 = time.perf_counter()
 CKPT = "checkpoints/rexquad_deqmpc"
 PENDULUM_CKPT = "checkpoints/pendulum_deqmpc"
+STREAMING_CKPT = "checkpoints/rexquad_streaming"
 EPISODES, TICKS = 32, 10
 PENDULUM_EPISODES, PENDULUM_TICKS = 32, 20
 TRAIN_BSZ, TRAIN_STEPS, PENDULUM_TRAIN_STEPS = 128, 3, 5
+# config #5: start states of the card-vs-CPU ticks, warm ticks after tick 0,
+# the closed loop, and the bench's reps
+STREAM_STATES, STREAM_WARM_TICKS = 4, 2
+STREAM_EPISODES, STREAM_TICKS = 32, 10
+BENCH_FLEET, BENCH_REPS = 256, 3
 SERVE_SHAPE = (EPISODES, 5, 16)  # the solve's shape on the served path
-# the solve's shape in the config-#4 training step, forward and backward:
-# this slice's main path, whose numbers the kernels line reports
+# the solve's shape in the config-#4 and config-#5 training steps, forward
+# and backward, whose numbers the kernels line reports
 MAIN_SHAPE = (TRAIN_BSZ, 5, 16)
 PENDULUM_SERVE_SHAPE = (PENDULUM_EPISODES, 5, 3)  # the served pendulum's solve
+# bench_streaming's single vehicle and fleet, and a batch that leaves the
+# warp kernel's last CTA part empty
+STREAM_SHAPES = [(1, 5, 16), (3, 5, 16), (BENCH_FLEET, 5, 16)]
 KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (128, 10, 5), (64, 20, 18), (4, 200, 18), SERVE_SHAPE,
-                 MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40)]
+                 MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40), *STREAM_SHAPES]
 TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
                 ((1024, 5, 16), torch.float32), ((128, 5, 3), torch.float32),
-                ((64, 20, 18), torch.float64)]
+                ((64, 20, 18), torch.float64), ((1, 5, 16), torch.float32),
+                ((BENCH_FLEET, 5, 16), torch.float32)]
 # H100 SXM, NVIDIA data sheet: HBM rate; f32 outside the tensor cores,
 # f64 through the tensor cores (DMMA), the fastest each type can run
 HBM_BYTES_PER_S = 3.35e12
@@ -107,6 +138,15 @@ ACTION_TOL = {torch.float32: {"median": 5e-2, "p75": 1.0},
 # is the only step-0 check that a fault of the backward can fail
 STEP0_RTOL = {torch.float32: {"loss": 2e-2},
               torch.float64: {"loss": 1e-3, "grad_norm": 5e-2}}
+# rexquad_streaming's warm ticks, card vs CPU. In f64 one of the 4 states
+# jumps at each warm tick: it moved by 2.2e-2 (tick 1) and 0.10 (tick 2)
+# card vs CPU, as far as the planted unshifted carry moves it, while the
+# median stayed at 2.3e-6 and 8.5e-5 (PERF.md, PR 7). On the CPU, JAX's own
+# warm-tick action for such a state moves by 5.2e-4 under a 1e-14 move of
+# the observations. So the f64 warm ticks are held by the median, which the
+# planted fault moves to 1.8e-3 and 6.8e-3
+WARM_ACTION_TOL = {torch.float32: ACTION_TOL[torch.float32],
+                   torch.float64: {"median": ACTION_TOL[torch.float64]["median"]}}
 
 
 def phase(name, **info):
@@ -262,11 +302,15 @@ def rel_gap(a, b):
     return abs(float(a) - float(b)) / abs(float(b))
 
 
-def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env, batch_np):
-    """Config #4's training step: step 0 on the card against the CPU, in
-    f32 (the trained configuration) and f64 (tight), each beside the card's
-    own move under a perturbation of the start states; then TRAIN_STEPS
-    steps on the card (the main path) and one profiled step."""
+def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env, batch_np,
+                  loss=None, sensitivity=True):
+    """A RexQuadrotor training step (config #4, or #5 with the streaming
+    `loss`): step 0 on the card against the CPU, in f32 (the trained
+    configuration) and f64 (tight), with `sensitivity` each beside the
+    card's own move under a perturbation of the start states; then
+    TRAIN_STEPS steps on the card (the main path) and one profiled step."""
+    loss = loss or train.loss_fn
+
     def fresh(dev, dtype=torch.float32):
         p = build_policy(args, env, dev)
         if dtype == torch.float64:
@@ -281,7 +325,7 @@ def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args,
         b["obs"] = b["obs"].astype(np.float64) * (1 + rel_noise * noise)
         p, o = fresh(dev, dtype)
         t = time.perf_counter()
-        res = train.train_step(p, o, train.to_device(b, dev, dtype))
+        res = train.train_step(p, o, train.to_device(b, dev, dtype), loss=loss)
         return {"loss": float(res["loss"]), "grad_norm": float(res["grad_norm"]),
                 "s": time.perf_counter() - t}
 
@@ -289,13 +333,14 @@ def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args,
         return {k: rel_gap(a[k], b[k]) for k in ("loss", "grad_norm")}
 
     out = {"cpu_step0": step0("cpu", torch.float32),
-           "card_step0_moved_1e-6": step0("cuda", torch.float32, 1e-6),
            "cpu_step0_f64": step0("cpu", torch.float64),
-           "card_step0_f64": step0("cuda", torch.float64),
-           "card_step0_f64_moved_1e-12": step0("cuda", torch.float64, 1e-12)}
+           "card_step0_f64": step0("cuda", torch.float64)}
     out["step0_gap_card_vs_cpu_f64"] = gaps(out["card_step0_f64"], out["cpu_step0_f64"])
-    out["step0_gap_sensitivity_f64_1e-12"] = gaps(out["card_step0_f64_moved_1e-12"],
-                                                  out["card_step0_f64"])
+    if sensitivity:
+        out["card_step0_moved_1e-6"] = step0("cuda", torch.float32, 1e-6)
+        out["card_step0_f64_moved_1e-12"] = step0("cuda", torch.float64, 1e-12)
+        out["step0_gap_sensitivity_f64_1e-12"] = gaps(out["card_step0_f64_moved_1e-12"],
+                                                      out["card_step0_f64"])
     # a planted fault the f64 check should see: the implicit backward's
     # gradients into Q and q with their signs flipped
     good = newton_al.implicit_grads
@@ -317,7 +362,7 @@ def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args,
         c0, by0 = policy_counts(policy), dict(bt.block_tridiag_solve.launches_by_kernel)
         timings = {}
         t = time.perf_counter()
-        res = train.train_step(policy, opt, batch, timings=timings)
+        res = train.train_step(policy, opt, batch, timings=timings, loss=loss)
         step_s = time.perf_counter() - t  # train_step synchronised the card
         c1 = policy_counts(policy)
         steps.append({"loss": float(res["loss"]), "grad_norm": float(res["grad_norm"]),
@@ -331,7 +376,8 @@ def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args,
     out["steps"] = steps
     out["card_step0"] = {k: steps[0][k] for k in ("loss", "grad_norm")}
     out["step0_gap_card_vs_cpu"] = gaps(out["card_step0"], out["cpu_step0"])
-    out["step0_gap_sensitivity_1e-6"] = gaps(out["card_step0_moved_1e-6"], out["card_step0"])
+    if sensitivity:
+        out["step0_gap_sensitivity_1e-6"] = gaps(out["card_step0_moved_1e-6"], out["card_step0"])
     step_s = float(np.median([s["step_s"] for s in steps]))
     out["step_s_median"] = step_s
     for part in ("forward_s", "backward_s", "optimizer_s"):
@@ -344,7 +390,7 @@ def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args,
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        train.train_step(policy, opt, batch)
+        train.train_step(policy, opt, batch, loss=loss)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -404,14 +450,127 @@ def serve_pendulum(bt, newton_al, build_policy, load_checkpoint, make_env, eval_
     return res
 
 
+def serve_streaming(bt, tridiag, newton_al, DEQMPCPolicy, PolicyCarry, build_policy,
+                    load_checkpoint, make_env, eval_policy):
+    """`rexquad_streaming` (config #5), warm-started: tick 0 and
+    STREAM_WARM_TICKS warm ticks of STREAM_STATES start states on the card
+    and on the CPU, in f32 and f64, the observations driven by the CPU's
+    actions; in f64 also the card's ticks under observations moved by 1e-12
+    and with the plain solve in place of the kernel, each against the
+    card's or the CPU's; a planted fault (the carry left unshifted) that
+    the f64 warm ticks must reject; then STREAM_EPISODES x STREAM_TICKS closed-loop
+    ticks through `eval_policy` with the counts set to 0 just before, and
+    per tick its Newton steps, retries and stopped share."""
+    state, args = load_checkpoint(STREAMING_CKPT, "cuda")
+    env = make_env(args["env"])
+    policy = build_policy(args, env, "cuda")
+    policy.model.load_state_dict(state)
+    check(args["streaming"] and policy.rho_warm_max == 10.0,
+          f"{STREAMING_CKPT}: streaming {args.get('streaming')}, rho_warm_max {policy.rho_warm_max}")
+    x0 = env.reset(torch.Generator().manual_seed(0), STREAM_STATES, device="cpu",
+                   dtype=torch.float64)
+    out = {"gaps": {}, "status": {}}
+
+    def ticks(p, dev, dtype, obs_seq):
+        """First actions and status of tick 0 and the warm ticks, each
+        tick's observation from `obs_seq` (None: step the env with this
+        policy's own actions)."""
+        us, status, carry, obs = [], [], None, x0
+        for t in range(1 + STREAM_WARM_TICKS):
+            if obs_seq is not None:
+                obs = obs_seq[t]
+            o = obs.to(dev, dtype)
+            res = p.forward(o) if t == 0 else p.forward_warm_start(o, carry)
+            carry = res["carry"]
+            us.append(res["trajs"][-1][2][:, 0])
+            status.append(float(res["status"].float().mean()))
+            if obs_seq is None:
+                obs, _ = env.step(obs, us[-1].to("cpu", torch.float64))
+        return us, status
+
+    def unshifted(z, x, u, sol_state):  # the planted fault
+        return PolicyCarry(z=z.detach(), x=x.detach(), u=u.detach(), solver=sol_state)
+
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.float64):
+            pols = {}
+            for dev in ("cpu", "cuda"):
+                pols[dev] = DEQMPCPolicy(dataclasses.replace(policy.cfg, solver_dtype=dtype),
+                                         env, dev)
+                pols[dev].model.load_state_dict(state)
+                pols[dev].model.to(dtype)
+            # the CPU's run sets the observations both devices see
+            obs_seq = [x0]
+            u_cpu, st_cpu = ticks(pols["cpu"], "cpu", dtype, None)
+            for u in u_cpu[:-1]:
+                obs_seq.append(env.step(obs_seq[-1], u.double())[0])
+            u_card, st_card = ticks(pols["cuda"], "cuda", dtype, obs_seq)
+            key = str(dtype)
+            out["gaps"][key] = [action_gap(a, b) for a, b in zip(u_card, u_cpu)]
+            out["status"][key] = {"card": st_card, "cpu": st_cpu}
+            print(f"[chip_smoke]   {dtype}: per-tick action gap {json.dumps(out['gaps'][key])}, "
+                  f"stopped share {json.dumps(out['status'][key])}", flush=True)
+            if dtype == torch.float64:
+                # the card's own rounding sensitivity: observations moved by 1e-12
+                gen = torch.Generator().manual_seed(1)
+                moved = [o * (1 + 1e-12 * torch.randn(o.shape, generator=gen, dtype=o.dtype))
+                         for o in obs_seq]
+                u_moved, _ = ticks(pols["cuda"], "cuda", dtype, moved)
+                out["gaps"]["card_sensitivity_1e-12_f64"] = [action_gap(a, b.cpu()) for a, b
+                                                             in zip(u_moved, u_card)]
+                print("[chip_smoke]   card f64 sensitivity to 1e-12, per tick "
+                      f"{json.dumps(out['gaps']['card_sensitivity_1e-12_f64'])}", flush=True)
+                # does the card-vs-CPU gap come from the kernel?
+                good_solve = newton_al.block_tridiag_solve
+                newton_al.block_tridiag_solve = tridiag.block_tridiag_solve
+                try:
+                    u_plain, _ = ticks(pols["cuda"], "cuda", dtype, obs_seq)
+                finally:
+                    newton_al.block_tridiag_solve = good_solve
+                out["gaps"]["plain_solve_on_card_f64"] = [action_gap(a, b)
+                                                          for a, b in zip(u_plain, u_cpu)]
+                print("[chip_smoke]   f64 with the plain solve on the card: per-tick gap to the "
+                      f"CPU {json.dumps(out['gaps']['plain_solve_on_card_f64'])}", flush=True)
+                pols["cuda"]._save_carry = unshifted
+                u_bad, _ = ticks(pols["cuda"], "cuda", dtype, obs_seq)
+                out["gaps"]["planted_unshifted_carry_f64"] = [action_gap(a, b)
+                                                              for a, b in zip(u_bad, u_cpu)]
+                print("[chip_smoke]   planted fault (carry unshifted), f64 gaps "
+                      f"{json.dumps(out['gaps']['planted_unshifted_carry_f64'])}", flush=True)
+
+    per_tick, cold, warm = [], policy.forward, policy.forward_warm_start
+
+    def record(fn, kind):
+        def wrapped(*a):
+            c0 = policy_counts(policy)
+            res = fn(*a)
+            c1 = policy_counts(policy)
+            per_tick.append({"kind": kind, "newton_steps": c1["newton_steps"] - c0["newton_steps"],
+                             "retries": c1["retries"] - c0["retries"],
+                             "stopped_share": float(res["status"].float().mean())})
+            return res
+        return wrapped
+
+    policy.forward, policy.forward_warm_start = record(cold, "cold"), record(warm, "warm")
+    torch.cuda.synchronize()
+    before = policy_counts(policy)
+    reset_counts(bt)
+    res = eval_policy(args, env, policy, n_episodes=STREAM_EPISODES, ep_len=STREAM_TICKS, seed=0,
+                      device="cuda")
+    res["counts"] = path_counts(bt, policy, before)
+    res["per_tick"] = per_tick
+    out["closed_loop"] = res
+    return out
+
+
 def action_gap(u_card, u_cpu):
     gap = (u_card.double().cpu() - u_cpu.double()).abs().amax(dim=-1)
     return {"median": float(gap.median()), "p75": float(gap.quantile(0.75)),
             "max": float(gap.max())}
 
 
-def gap_within(gap, dtype):
-    return all(gap[q] <= lim for q, lim in ACTION_TOL[dtype].items())
+def gap_within(gap, dtype, tol=ACTION_TOL):
+    return all(gap[q] <= lim for q, lim in tol[dtype].items())
 
 
 def min_inv_cond(D, O):
@@ -510,9 +669,9 @@ def main() -> int:
     from deqmpc_tpu_torch.envs import make_env
     from deqmpc_tpu_torch.ops import block_tridiag as bt
     from deqmpc_tpu_torch.ops import tridiag
-    from deqmpc_tpu_torch.policies import DEQMPCPolicy, build_policy
+    from deqmpc_tpu_torch.policies import DEQMPCPolicy, PolicyCarry, build_policy
     from deqmpc_tpu_torch.solvers import newton_al
-    from deqmpc_tpu_torch.training import train
+    from deqmpc_tpu_torch.training import bench_streaming, train
     from deqmpc_tpu_torch.training.eval import card_info, eval_policy
     from deqmpc_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -540,21 +699,28 @@ def main() -> int:
     worst = {}
     for dtype in (torch.float32, torch.float64):
         for bsz, T, n in KERNEL_SHAPES:
-            D, O, b = problem(bsz, T, n, dtype, nonspd=1)
-            x_ref = tridiag.block_tridiag_solve(D, O, b)
-            check(bool(torch.isnan(x_ref[1]).all()), f"plain: non-SPD sample not NaN at {(bsz, T, n)}")
-            keep = torch.ones(bsz, dtype=torch.bool, device="cuda")
-            keep[1] = False
-            for kernel in dict.fromkeys([bt.pick_kernel(n), "block"]):
-                x = bt.block_tridiag_solve(D, O, b, kernel=kernel)
-                torch.cuda.synchronize()
-                where = f"{kernel} kernel at {(bsz, T, n)} {dtype}"
-                check(bool(torch.isnan(x[1]).all()), f"non-SPD sample not NaN: {where}")
-                check(bool(torch.isfinite(x[keep]).all()), f"finite samples broke: {where}")
-                torch.testing.assert_close(x[keep], x_ref[keep], **KERNEL_TOL[dtype])
-                err = float((x[keep] - x_ref[keep]).abs().max())
-                worst[f"{kernel}/{bsz}x{T}x{n}/{dtype}"] = err
-                print(f"[chip_smoke]   {where}: max|kernel-plain| = {err:.3e}", flush=True)
+            # sample 1 is not SPD; a batch of one is checked SPD, then not SPD
+            for bad in ([1] if bsz > 1 else [None, 0]):
+                D, O, b = problem(bsz, T, n, dtype, nonspd=bad)
+                x_ref = tridiag.block_tridiag_solve(D, O, b)
+                keep = torch.ones(bsz, dtype=torch.bool, device="cuda")
+                if bad is not None:
+                    check(bool(torch.isnan(x_ref[bad]).all()),
+                          f"plain: non-SPD sample not NaN at {(bsz, T, n)}")
+                    keep[bad] = False
+                for kernel in dict.fromkeys([bt.pick_kernel(n), "block"]):
+                    x = bt.block_tridiag_solve(D, O, b, kernel=kernel)
+                    torch.cuda.synchronize()
+                    where = f"{kernel} kernel at {(bsz, T, n)} {dtype}"
+                    if bad is not None:
+                        check(bool(torch.isnan(x[bad]).all()), f"non-SPD sample not NaN: {where}")
+                    if not bool(keep.any()):
+                        continue
+                    check(bool(torch.isfinite(x[keep]).all()), f"finite samples broke: {where}")
+                    torch.testing.assert_close(x[keep], x_ref[keep], **KERNEL_TOL[dtype])
+                    err = float((x[keep] - x_ref[keep]).abs().max())
+                    worst[f"{kernel}/{bsz}x{T}x{n}/{dtype}"] = err
+                    print(f"[chip_smoke]   {where}: max|kernel-plain| = {err:.3e}", flush=True)
     report["kernel_max_abs_err"] = worst
     timings = [time_solve(bt, tridiag, *shape, dtype) for shape, dtype in TIMED_SHAPES]
     report["kernel_timings"] = timings
@@ -664,10 +830,10 @@ def main() -> int:
     # -- 6. train, config #4 ----------------------------------------------------
     phase("train: config #4", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
 
-    def expert_batch(env_name, env_, seed):
+    def expert_batch(env_name, env_, seed, horizon=args["T"]):
         gt, _ = train.split_episodes(get_gt_data(env_))
         return train.preprocess_batch(env_name, env_.nx,
-                                      sample_trajectory(gt, TRAIN_BSZ, 1, args["T"],
+                                      sample_trajectory(gt, TRAIN_BSZ, 1, horizon,
                                                         np.random.default_rng(seed)))
 
     tr4 = train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env,
@@ -718,16 +884,79 @@ def main() -> int:
     check(sp["block_sizes"] == [3], f"pendulum solves at block sizes {sp['block_sizes']}")
     check_all_warp(sp["counts"], "pendulum closed loop")
 
-    # -- 9. result ------------------------------------------------------------
+    # -- 9. serve rexquad_streaming, warm-started ---------------------------------
+    phase("serve: rexquad_streaming warm-started", states=STREAM_STATES,
+          warm_ticks=STREAM_WARM_TICKS, episodes=STREAM_EPISODES, ticks=STREAM_TICKS)
+    ss = serve_streaming(bt, tridiag, newton_al, DEQMPCPolicy, PolicyCarry, build_policy,
+                         load_checkpoint, make_env, eval_policy)
+    report["serve_streaming"] = ss
+    cl = ss["closed_loop"]
+    phase("serve: rexquad_streaming done", **{k: v for k, v in cl.items() if k != "per_tick"})
+    for row in cl["per_tick"]:
+        print(f"[chip_smoke]   tick {json.dumps(row)}", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        for t, g in enumerate(ss["gaps"][str(dtype)]):
+            tol = ACTION_TOL if t == 0 else WARM_ACTION_TOL
+            check(gap_within(g, dtype, tol), f"streaming tick {t}, card vs CPU ({dtype}): {g} "
+                  f"beyond {tol[dtype]}")
+    check(not all(gap_within(g, torch.float64, WARM_ACTION_TOL)
+                  for g in ss["gaps"]["planted_unshifted_carry_f64"][1:]),
+          "the f64 warm-tick check passed a planted fault (the carry left unshifted)")
+    check(cl["n_nan_episodes"] == 0 and np.isfinite(cl["mean_reward"]),
+          "non-finite states or rewards in the streaming closed loop")
+    check(cl["warm_start"] and [r["kind"] for r in cl["per_tick"]]
+          == ["cold"] + ["warm"] * (STREAM_TICKS - 1), "the closed loop was not warm-started")
+    check_all_warp(cl["counts"], "streaming closed loop")
+
+    # -- 10. train, config #5 ----------------------------------------------------
+    state5, args5 = load_checkpoint(STREAMING_CKPT, "cuda")
+    L = args5["streaming_steps"]
+    phase("train: config #5 (streaming)", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, streaming_steps=L)
+    tr5 = train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state5, args5, env,
+                        expert_batch(args5["env"], env, 2, args5["T"] + L),
+                        loss=train.make_loss_fn(L), sensitivity=False)
+    report["train_streaming"] = tr5
+    for s_ in tr5["steps"]:
+        print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+    phase("train: config #5 done", **{k: v for k, v in tr5.items() if k != "steps"})
+    for i, s_ in enumerate(tr5["steps"]):
+        check(np.isfinite(s_["loss"]) and np.isfinite(s_["grad_norm"]),
+              f"streaming step {i}: loss {s_['loss']}, grad norm {s_['grad_norm']}")
+        # one implicit backward per round of each of the 1 + L forwards
+        check(s_["backward_solves"] == tr5["deq_iter"] * (1 + L)
+              and s_["launches_by_kernel"]["warp"] == s_["newton_steps"] + s_["retries"]
+              + s_["backward_solves"] and s_["launches_by_kernel"]["block"] == 0,
+              f"streaming step {i}: solves and launches disagree: {s_}")
+    check_all_warp(tr5["counts"], "config-#5 training")
+    for dtype, key in ((torch.float32, "step0_gap_card_vs_cpu"),
+                       (torch.float64, "step0_gap_card_vs_cpu_f64")):
+        for k, lim in STEP0_RTOL[dtype].items():
+            check(tr5[key][k] <= lim, f"streaming step 0 {k} ({dtype}), card vs CPU: "
+                  f"relative gap {tr5[key][k]} > {lim}")
+    check(tr5["step0_gap_planted_sign_flip_f64"]["grad_norm"]
+          > STEP0_RTOL[torch.float64]["grad_norm"],
+          f"the f64 streaming step-0 check passed a planted fault: "
+          f"{tr5['step0_gap_planted_sign_flip_f64']}")
+
+    # -- 11. bench_streaming ---------------------------------------------------------
+    phase("bench_streaming", fleet_bsz=BENCH_FLEET, n_rep=BENCH_REPS)
+    bench = bench_streaming.main(["--fleet_bsz", str(BENCH_FLEET), "--n_rep", str(BENCH_REPS),
+                                  "--n_warmup", "1"])
+    report["bench_streaming"] = bench
+    check(all(np.isfinite(bench[k][f]) for k in ("single", "fleet")
+              for f in ("cold_ms", "warm_ms_per_tick")), f"bench_streaming: {bench}")
+
+    # -- 12. result ------------------------------------------------------------
     main_t = timings[0]
-    paths = {"train_rexquad": tr4["counts"], "train_pendulum": tr1["counts"],
+    paths = {"train_streaming": tr5["counts"], "serve_streaming": cl["counts"],
+             "train_rexquad": tr4["counts"], "train_pendulum": tr1["counts"],
              "serve_rexquad": {"launches_by_kernel": by_kernel},
              "serve_pendulum": sp["counts"]}
     kernels = [{
         "name": f"block_tridiag_solve[{kernel}]", "route": "cuda",
         "source": "deqmpc_tpu_torch/ops/csrc/block_tridiag.cu",
         "replaces": "deqmpc_tpu/ops/pallas_tridiag.py:100",
-        "launches": tr4["counts"]["launches_by_kernel"][kernel],
+        "launches": tr5["counts"]["launches_by_kernel"][kernel],
         "launches_by_path": {k: v["launches_by_kernel"][kernel] for k, v in paths.items()},
         "max_abs_err": worst[f"{kernel}/{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}x{MAIN_SHAPE[2]}/torch.float32"],
         "ms": main_t[f"{kernel}_ms"], "device_ms": main_t[f"{kernel}_device_ms"],

@@ -1,26 +1,45 @@
 """DEQ-MPC policy: the outer network <-> optimizer iteration.
 
-Port of `PolicyConfig`, `DEQMPCPolicy.__init__`, `forward` and
-`_deqmpc_iter` (`deqmpc_tpu/policies/deqmpc_policy.py:43-236`) for the
-cold-start forward of serving and training: N = deq_iter rounds of
+Port of `PolicyCarry`, `PolicyConfig`, `DEQMPCPolicy.__init__`,
+`forward`, `forward_warm_start`, `_deqmpc_iter` and `_save_carry`
+(`deqmpc_tpu/policies/deqmpc_policy.py:33-264`): N = deq_iter rounds of
 {network proposal -> AL tracking solve}; the solver's trajectory feeds
 the next round's network input with its gradient (as in JAX), and the
 AL state (duals, penalty, iterate) carries from round to round. The
 policy also carries what the loss reads (`deq_reg`, `loss_type`,
-`out_type`). `build_policy` mirrors `training/train.py:191-246` for
-the base variant. The streaming forward and the other variants wait for
-later slices.
+`out_type`).
+
+Streaming (receding horizon): every forward returns its carry in
+`policy_out["carry"]`, the last round's latent z, trajectory and AL state
+shifted one knot and detached (JAX's `lax.stop_gradient`), so a warm
+tick never backpropagates into the tick before it. `forward_warm_start`
+starts from a carry: after round 0's network call the AL state is shifted
+once more (`warm_start_shift`, rho clamped to `rho_warm_max`), and every
+tracking solve takes the streaming exit (and, with `linearize_once`, the
+linear model). `build_policy` mirrors `training/train.py:191-246` for
+the base variant; the other variants wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, NamedTuple
 
 import torch
 
 from .. import resolve_device
 from ..models.deq_layer import DEQLayer, DEQLayerConfig
+from ..solvers import ALState
 from .tracking_mpc import TrackingMPC
+
+
+class PolicyCarry(NamedTuple):
+    """Streaming carry: the shifted latent z (bsz, T-1, hdim), trajectory
+    x (bsz, T, nx) and u (bsz, T, nu), and the AL solver state."""
+
+    z: torch.Tensor
+    x: torch.Tensor
+    u: torch.Tensor
+    solver: ALState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +58,10 @@ class PolicyConfig:
     solver_dtype: Any = torch.float32
     max_newton_steps: int = 4
     rho_max: float = 1e8
+    rho_init_max: float = 1e4
     dyn_res_tol: float = 1e-3
+    # streaming ticks freeze the dynamics Jacobians once per solve
+    linearize_once: bool = False
     deq_reg: float = 0.1
     out_type: int = 1        # policy_out_type
     loss_type: str = "l1"
@@ -53,6 +75,11 @@ class DEQMPCPolicy:
         self.deq_iter = cfg.deq_iter
         self.out_type, self.loss_type, self.deq_reg = cfg.out_type, cfg.loss_type, cfg.deq_reg
         self.device = resolve_device(device)
+        # The warm restart's penalty keeps the depth of the rho schedule,
+        # not the constant: JAX measured 0% success warm-started with
+        # rho_init_max 1e4 under the f32 rho_max 1e5, 100% with 10
+        # (`deqmpc_policy.py:118-126`)
+        self.rho_warm_max = min(cfg.rho_init_max, cfg.rho_max * 1e-4)
         mcfg = DEQLayerConfig(
             nx=cfg.nx, nu=cfg.nu, nq=cfg.nq, T=cfg.T, dt=cfg.dt, hdim=cfg.hdim,
             deq_iter=cfg.deq_iter, fp_m=cfg.fp_m, fp_max_steps=cfg.fp_max_steps,
@@ -97,9 +124,9 @@ class DEQMPCPolicy:
         return float(n.backward_zeroed) / n.backward_samples if n.backward_samples else 0.0
 
     def forward(self, obs) -> Dict:
-        """Cold-start forward (`deqmpc_policy.py:143-161`). obs (bsz, nx)
+        """Cold-start forward (`deqmpc_policy.py:143-160`). obs (bsz, nx)
         -> {"trajs": [(x_ref, x_opt, u_opt)] * deq_iter, "status",
-        "init_states"}."""
+        "init_states", "carry"}."""
         bsz = obs.shape[0]
         x_ref = obs[:, None].expand(bsz, self.T, self.nx)
         policy_out = self._deqmpc_iter(obs, x_ref,
@@ -108,17 +135,38 @@ class DEQMPCPolicy:
         policy_out["init_states"] = x_ref
         return policy_out
 
-    def _deqmpc_iter(self, obs, x_prev, z, sol_state) -> Dict:
+    def forward_warm_start(self, obs, carry: PolicyCarry) -> Dict:
+        """Streaming forward (`deqmpc_policy.py:163-173`) from the carry of
+        the tick before; same outputs as `forward`."""
+        policy_out = self._deqmpc_iter(obs, carry.x, carry.z, carry.solver, warm_start=True)
+        policy_out["init_states"] = carry.x
+        return policy_out
+
+    def _deqmpc_iter(self, obs, x_prev, z, sol_state, warm_start: bool = False) -> Dict:
+        cfg = self.cfg
         trajs = []
-        status = torch.zeros((obs.shape[0],), dtype=torch.bool, device=obs.device)
-        for _ in range(self.deq_iter):
+        for i in range(self.deq_iter):
             out_mpc, z = self.model(obs, x_prev, z)
             x_t, x_ref, u_ref = out_mpc["x_t"], out_mpc["x_ref"], out_mpc["u_ref"]
+            if warm_start and i == 0:
+                # the receding-horizon shift of the duals and iterate
+                sol_state = self.tracking_mpc.warm_start_state(sol_state, self.rho_warm_max)
             ns, na, status, sol_state = self.tracking_mpc(
-                x_t, x_ref, u_ref, sol_state, al_iters=self.cfg.al_iter)
+                x_t, x_ref, u_ref, sol_state, al_iters=cfg.al_iter, streaming=warm_start,
+                linearize_once=warm_start and cfg.linearize_once)
             x_prev = ns
             trajs.append((x_ref, ns, na))
-        return {"trajs": trajs, "status": status}
+        return {"trajs": trajs, "status": status,
+                "carry": self._save_carry(z, ns, na, sol_state)}
+
+    @staticmethod
+    def _save_carry(z, x, u, sol_state) -> PolicyCarry:
+        """Shift z, x and u left one knot along their time axis, repeating
+        the last, and detach them (`deqmpc_policy.py:238-264`)."""
+        def shift(a):
+            return torch.cat([a[:, 1:], a[:, -1:]], dim=1).detach()
+
+        return PolicyCarry(z=shift(z), x=shift(x), u=shift(u), solver=sol_state)
 
 
 def build_policy(args: Mapping[str, Any], env, device="cuda") -> DEQMPCPolicy:
@@ -128,7 +176,7 @@ def build_policy(args: Mapping[str, Any], env, device="cuda") -> DEQMPCPolicy:
     unsupported = {
         "deq": (True,), "qp_solve": (True,), "lastqp_solve": (False,),
         "solver_type": ("al",), "policy_variant": ("base",), "addmem": (False,),
-        "streaming": (False,), "deq_type": ("deq",), "layer_type": ("gcn",),
+        "deq_type": ("deq",), "layer_type": ("gcn",),
         "fp_type": ("anderson",), "deq_out_type": (1,), "grad_type": ("fp_grad",),
         "recompute_Qq": (False,), "compute_dtype": ("f32",),
     }
@@ -146,6 +194,7 @@ def build_policy(args: Mapping[str, Any], env, device="cuda") -> DEQMPCPolicy:
         fp_max_steps=int(a.get("max_steps", 10)), fp_m=a.get("m", 5),
         kernel_width=a.get("kernel_width", 3), al_iter=2,
         solver_dtype=torch.float64 if double else torch.float32, rho_max=rho_max,
+        rho_init_max=a.get("rho_init_max", 1e4), linearize_once=a.get("linearize_once", False),
         deq_reg=a.get("deq_reg", 0.1), out_type=a.get("policy_out_type", 1),
         loss_type=a.get("loss_type", "l1"),
     )

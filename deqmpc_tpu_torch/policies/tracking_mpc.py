@@ -1,12 +1,12 @@
 """Tracking MPC adapter: network reference -> quadratic tracking cost
 -> AL solver.
 
-Port of `TrackingMPC.__init__`, `init_state`, `compute_pf` and
-`__call__` (`deqmpc_tpu/policies/tracking_mpc.py:27-185`) for the
-cold-start AL path: the diagonal cost Q = diag([Qlqr, Rlqr]) per knot
-point, the linear term p = -Q * xu_ref and the constant
-f = 0.5 xu_ref'Q xu_ref. The q-scaling, auxiliary-cost, interior-point,
-linearize-once and cost-refresh options wait for later slices.
+Port of `TrackingMPC.__init__`, `init_state`, `warm_start_state`,
+`compute_pf` and `__call__` (`deqmpc_tpu/policies/tracking_mpc.py:27-185`)
+for the AL path, cold-started or streaming: the diagonal cost
+Q = diag([Qlqr, Rlqr]) per knot point, the linear term p = -Q * xu_ref and
+the constant f = 0.5 xu_ref'Q xu_ref. The q-scaling, auxiliary-cost,
+interior-point and cost-refresh options wait for later slices.
 """
 from __future__ import annotations
 
@@ -42,18 +42,30 @@ class TrackingMPC:
     def init_state(self, bsz: int) -> ALState:
         return self.ctrl.init_state(bsz)
 
+    def warm_start_state(self, state: ALState, rho_init_max: float) -> ALState:
+        return self.ctrl.warm_start_shift(state, rho_init_max)
+
     def compute_pf(self, xu_ref, Q):
         """p = -Q*xu_ref (diagonal Q), f = 0.5 xu_ref'Q xu_ref."""
         return -Q * xu_ref, 0.5 * torch.sum(xu_ref * Q * xu_ref, dim=-1)
 
-    def __call__(self, x0, x_ref, u_ref, state: ALState, al_iters: int = 2):
+    def __call__(self, x0, x_ref, u_ref, state: ALState, al_iters: int = 2,
+                 streaming: bool = False, linearize_once: bool = False):
         """Returns (nominal_states, nominal_actions, status, new_state),
-        states and actions cast back to the network dtype."""
+        states and actions cast back to the network dtype. streaming: the
+        solve's rho-cap exit; with linearize_once too, the AL loop runs on
+        the dynamics linearised once at the warm-started iterate, with a
+        fixed budget of 8 iterations whose exits govern termination
+        (`tracking_mpc.py:170-178`)."""
         bsz = x0.shape[0]
         net_dtype = x_ref.dtype
         xu_ref = torch.cat([x_ref, u_ref], dim=-1).to(self.dtype)
         Q = self.Q0.expand(bsz, self.T, self.nx + self.nu)
         p, f = self.compute_pf(xu_ref, Q)
-        x, u, status, new_state = self.ctrl.solve(
-            x0, QuadCost(Q=Q, q=p, f=f), state, x_ref, u_ref, al_iter=al_iters)
+        cost = QuadCost(Q=Q, q=p, f=f)
+        if linearize_once and streaming:
+            x, u, status, new_state = self.ctrl.solve_linearize_once(x0, cost, state)
+        else:
+            x, u, status, new_state = self.ctrl.solve(
+                x0, cost, state, x_ref, u_ref, al_iter=al_iters, streaming=streaming)
         return x.to(net_dtype), u.to(net_dtype), status, new_state

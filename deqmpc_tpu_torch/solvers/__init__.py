@@ -2,6 +2,6 @@
 from .al_mpc import ALMPC
 from .fp import anderson
 from .newton_al import NewtonAL
-from .types import ALState, NewtonALConfig, QuadCost
+from .types import ALState, LinDx, NewtonALConfig, QuadCost
 
-__all__ = ["ALMPC", "ALState", "NewtonAL", "NewtonALConfig", "QuadCost", "anderson"]
+__all__ = ["ALMPC", "ALState", "LinDx", "NewtonAL", "NewtonALConfig", "QuadCost", "anderson"]

@@ -28,7 +28,8 @@ no extra assembly.
 """
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -37,30 +38,55 @@ from .al_core import full_residuals, merit_function, merit_grad_blocks
 from .types import NewtonALConfig
 
 
+@dataclasses.dataclass
+class NewtonCounts:
+    """What a NewtonAL has done: `steps` Newton steps taken, so a run can
+    check that each one went through the solve kernel; `retries` jittered
+    re-solves; `backward_solves` implicit-backward solves, over
+    `backward_samples` samples, of which `backward_zeroed` (a device
+    tensor once a backward ran, read without a sync per solve) had their
+    gradient set to 0."""
+
+    steps: int = 0
+    retries: int = 0
+    backward_solves: int = 0
+    backward_samples: int = 0
+    backward_zeroed: Union[int, torch.Tensor] = 0
+
+
+def _count(name: str) -> property:
+    return property(lambda self: getattr(self.counts, name),
+                    lambda self, v: setattr(self.counts, name, v))
+
+
 class NewtonAL:
     """newton_al(xu, x0, lam, rho, Q, q) -> (xu_out, status).
 
     dyn(x, u): batched discrete dynamics over leading dims.
     dyn_jac(x, u): -> (x_next, F) with F = [A B]: (..., nx, nx+nu).
-    `steps` counts the Newton steps taken, so a run can check that each
-    one went through the solve kernel; `retries` counts the jittered
-    re-solves; `backward_solves` counts the implicit backward's solves,
-    `backward_samples` the samples they solved and `backward_zeroed` (a
-    device tensor once a backward ran, to read without a sync per solve)
-    those whose gradient was set to 0."""
+    The counters of `NewtonCounts` read as attributes (`steps`, ...);
+    `with_dynamics` gives the same solver on other dynamics, counting into
+    the same counters."""
+
+    steps = _count("steps")
+    retries = _count("retries")
+    backward_solves = _count("backward_solves")
+    backward_samples = _count("backward_samples")
+    backward_zeroed = _count("backward_zeroed")
 
     def __init__(self, cfg: NewtonALConfig, dyn: Callable, dyn_jac: Callable,
-                 u_lower, u_upper):
+                 u_lower, u_upper, counts: Optional[NewtonCounts] = None):
         self.cfg = cfg
         self.dyn = dyn
         self.dyn_jac = dyn_jac
         self.u_lower = u_lower
         self.u_upper = u_upper
-        self.steps = 0
-        self.retries = 0
-        self.backward_solves = 0
-        self.backward_samples = 0
-        self.backward_zeroed = 0
+        self.counts = NewtonCounts() if counts is None else counts
+
+    def with_dynamics(self, dyn: Callable, dyn_jac: Callable) -> "NewtonAL":
+        """This solver on the dynamics (dyn, dyn_jac), e.g. a model
+        linearised for one call; its steps and solves count here too."""
+        return NewtonAL(self.cfg, dyn, dyn_jac, self.u_lower, self.u_upper, self.counts)
 
     # -- pieces -----------------------------------------------------------------
     def _merit(self, xu, Q, q, x0, lam, rho):

@@ -22,6 +22,14 @@ class QuadCost(NamedTuple):
     f: torch.Tensor
 
 
+class LinDx(NamedTuple):
+    """Linear(ized) dynamics x_{t+1} = F_t [x_t; u_t] + f_t.
+    F: (bsz, T-1, nx, nx+nu); f: (bsz, T-1, nx)."""
+
+    F: torch.Tensor
+    f: torch.Tensor
+
+
 class ALState(NamedTuple):
     """Per-sample augmented-Lagrangian solver state.
 

@@ -1,9 +1,13 @@
-"""Closed-loop evaluation of a policy, cold start on every tick.
+"""Closed-loop evaluation of a policy.
 
 Port of `eval_policy`, `final_state_errors` and `success_dims_for_env`
-(`deqmpc_tpu/training/eval.py:21-134`) for policies trained without
-streaming: at each env step the policy runs a cold-start forward and
-the first action of its last solve is applied. `--ckpt` names a JAX
+(`deqmpc_tpu/training/eval.py:21-134`): at each env step the policy runs
+a forward and the first action of its last solve is applied. Tick 0 is a
+cold start; with `warm_start` (by default iff the checkpoint was trained
+with `streaming`, as in JAX) every later tick is `forward_warm_start`
+from the carry of the tick before, else a cold start again. The JSON
+gives tick 0's time (`tick_s_cold`) apart from the median of the warm
+ticks (`tick_s_warm_median`). `--ckpt` names a JAX
 package checkpoint (`checkpoints/rexquad_deqmpc`,
 `checkpoints/pendulum_deqmpc`) or a port checkpoint written by
 `training/train.py --save`. `final_dist_sem` is the standard error of the
@@ -50,18 +54,25 @@ def success_dims_for_env(env_name: str, nx: int, nq: int):
 
 def eval_policy(args: Dict, env, policy, n_episodes: int = 32,
                 ep_len: Optional[int] = None, seed: int = 0,
-                device="cuda") -> Dict[str, float]:
-    """Roll `n_episodes` episodes of `ep_len` ticks from seeded starts."""
+                device="cuda", warm_start: Optional[bool] = None) -> Dict[str, float]:
+    """Roll `n_episodes` episodes of `ep_len` ticks from seeded starts;
+    `warm_start` None means `args["streaming"]`."""
     device = resolve_device(device)
     if ep_len is None:
         ep_len = env._max_episode_steps
+    if warm_start is None:
+        warm_start = bool(args.get("streaming", False))
     gen = torch.Generator().manual_seed(seed)
     x = env.reset(gen, n_episodes, device=device)
     xs, rewards, tick_s = [], [], []
     with torch.inference_mode():
-        for _ in range(ep_len):
+        for t in range(ep_len):
             t0 = time.perf_counter()
-            u0 = policy.forward(x.float())["trajs"][-1][2][:, 0]
+            if t > 0 and warm_start:
+                out = policy.forward_warm_start(x.float(), out["carry"])
+            else:
+                out = policy.forward(x.float())
+            u0 = out["trajs"][-1][2][:, 0]
             x, r = env.step(x, u0)
             rewards.append(r.cpu().numpy())
             xs.append(x.cpu().numpy())  # the copy waits for the tick to finish
@@ -84,6 +95,9 @@ def eval_policy(args: Dict, env, policy, n_episodes: int = 32,
         "success_rate": float(np.mean(success)),
         "n_nan_episodes": int(np.sum(~np.isfinite(xs[:, -1]).all(axis=-1))),
         "tick_s_median": float(np.median(tick_s)),
+        "warm_start": warm_start,
+        "tick_s_cold": tick_s[0],
+        "tick_s_warm_median": float(np.median(tick_s[1:])) if warm_start and ep_len > 1 else None,
     }
 
 

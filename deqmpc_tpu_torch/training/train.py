@@ -1,12 +1,17 @@
 """Training: imitation learning of a DEQ-MPC policy from expert windows.
 
-Port of `preprocess_batch`, `make_train_step`, `validate_policy` and the
-train CLI (`deqmpc_tpu/training/train.py:40-190,262-346,404,492-700`) for
-the deq-mpc-deq model (configs #1 and #4 of `configs/run.sh`). One step:
+Port of `preprocess_batch`, `make_train_step`,
+`make_streaming_train_step`, `validate_policy` and the train CLI
+(`deqmpc_tpu/training/train.py:40-190,262-398,404,492-700`) for the
+deq-mpc-deq model (configs #1, #4 and #5 of `configs/run.sh`). One step:
 the cold-start policy forward (N rounds of network -> AL solve), the
 per-round loss, `backward()` (the phantom gradient through the DEQ cell,
 the implicit backward of each round's last Newton solve), a clip of the
-global gradient norm at 2.0 and Adam at lr 1e-3. The clip is optax's
+global gradient norm at 2.0 and Adam at lr 1e-3. A streaming step
+(`--streaming`, config #5) runs the cold forward on the window's first
+state and then `--streaming_steps` L warm-started forwards on states
+1..L, each from the carry of the one before, and sums the L+1 losses;
+its batches are windows of T + L states. The clip is optax's
 `clip_by_global_norm`: gradients are scaled by 2/||g|| only when
 ||g|| >= 2, with no epsilon (`torch.nn.utils.clip_grad_norm_` adds 1e-6
 to the norm, so it is not used). Adam is `torch.optim.Adam`, the same
@@ -17,6 +22,10 @@ update as `optax.adam` (b1 0.9, b2 0.999, eps 1e-8).
       [--save --name pendulum_port --models_dir ./model] [--device cpu]
   python -m deqmpc_tpu_torch.training.train --env rexquadrotor --nq 6 ... \\
       --load --models_dir checkpoints --ckpt rexquad_deqmpc
+  python -m deqmpc_tpu_torch.training.train --env rexquadrotor --nq 6 ... \\
+      --streaming --streaming_steps 2 --load --models_dir checkpoints --ckpt rexquad_streaming
+  python -m deqmpc_tpu_torch.training.train ... --load --ckpt X --eval \\
+      [--eval_episodes 32 --eval_ep_len 100 --eval_warm_start auto|on|off]
 
 `--load` starts from a JAX-package checkpoint (through
 `utils/checkpoint.params_from_jax`) or a port checkpoint (then with its
@@ -27,10 +36,11 @@ JAX CLI that are not ported raise NotImplementedError.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -82,12 +92,38 @@ def to_device(batch: Dict[str, np.ndarray], device, dtype=torch.float32) -> Dict
 
 # -- step -----------------------------------------------------------------------
 
-def loss_fn(policy, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The forward and the loss of one batch (`make_train_step.loss_fn`)."""
+def _window(batch, start: int, T: int):
+    return (batch["state"][:, start:start + T], batch["action"][:, start:start + T],
+            batch["mask"][:, start:start + T])
+
+
+def _cold_forward(policy, batch):
     obs = batch["obs"][:, -1] if batch["obs"].dim() == 3 else batch["obs"]
     policy_out = policy.forward(obs)
-    return compute_loss_deqmpc(policy, batch["state"], batch["action"], batch["mask"],
-                               policy_out, x_init=policy_out["init_states"])
+    return policy_out, compute_loss_deqmpc(policy, *_window(batch, 0, policy.T), policy_out,
+                                           x_init=policy_out["init_states"])
+
+
+def loss_fn(policy, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The forward and the loss of one batch (`make_train_step.loss_fn`),
+    on the first T states of its windows."""
+    return _cold_forward(policy, batch)[1]
+
+
+def streaming_loss_fn(policy, batch: Dict[str, torch.Tensor], steps: int) -> Dict[str, torch.Tensor]:
+    """The streaming forward and loss (`make_streaming_train_step.loss_fn`):
+    the cold forward's loss on states 0..T-1, then for l = 1..`steps` a
+    warm-started forward from state l and the previous carry, with its loss
+    on states l..l+T-1; the losses summed, loss_end their mean, the
+    per-round losses the last forward's."""
+    policy_out, d = _cold_forward(policy, batch)
+    total, loss_ends = d["loss"], [d["loss_end"]]
+    for l in range(1, steps + 1):
+        policy_out = policy.forward_warm_start(batch["state"][:, l], policy_out["carry"])
+        d = compute_loss_deqmpc(policy, *_window(batch, l, policy.T), policy_out)
+        total = total + d["loss"]
+        loss_ends.append(d["loss_end"])
+    return {**d, "loss": total, "loss_end": torch.stack(loss_ends).mean()}
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -113,9 +149,18 @@ def make_optimizer(policy, lr: float = 1e-3) -> torch.optim.Optimizer:
     return torch.optim.Adam(policy.model.parameters(), lr=lr)
 
 
+def make_loss_fn(streaming_steps: int = 0) -> Callable:
+    """`loss_fn`, or with streaming_steps L > 0 the streaming loss of L warm
+    forwards."""
+    if streaming_steps > 0:
+        return functools.partial(streaming_loss_fn, steps=streaming_steps)
+    return loss_fn
+
+
 def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
-               timings: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
-    """One training step: forward and loss, backward, clip, Adam. Returns
+               timings: Optional[Dict[str, float]] = None,
+               loss: Callable = loss_fn) -> Dict[str, torch.Tensor]:
+    """One training step: forward and `loss`, backward, clip, Adam. Returns
     the loss, loss_end and the gradient norm before clipping as device
     tensors. With `timings`, the device is synchronised after each part and
     its host-clock seconds are stored under forward_s, backward_s and
@@ -124,7 +169,7 @@ def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
             else (lambda: None))
     t0 = time.perf_counter()
     optimizer.zero_grad(set_to_none=True)
-    d = loss_fn(policy, batch)
+    d = loss(policy, batch)
     sync()
     t1 = time.perf_counter()
     d["loss"].backward()
@@ -139,10 +184,11 @@ def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
     return {"loss": d["loss"].detach(), "loss_end": d["loss_end"].detach(), "grad_norm": gnorm}
 
 
-def validate_policy(policy, val_samples: List[Dict[str, torch.Tensor]]) -> float:
+def validate_policy(policy, val_samples: List[Dict[str, torch.Tensor]],
+                    loss: Callable = loss_fn) -> float:
     """Mean over the validation batches of loss_end (`train.py:404`)."""
     with torch.inference_mode():
-        return float(np.mean([float(loss_fn(policy, b)["loss_end"]) for b in val_samples]))
+        return float(np.mean([float(loss(policy, b)["loss_end"]) for b in val_samples]))
 
 
 # -- CLI ------------------------------------------------------------------------
@@ -171,6 +217,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--load", action="store_true")
     p.add_argument("--ckpt", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--streaming_steps", type=int, default=3)
+    p.add_argument("--streaming_start_iter", type=int, default=0)
+    p.add_argument("--linearize_once", action="store_true")
+    p.add_argument("--eval", action="store_true",
+                   help="evaluate the loaded policy in closed loop instead of training")
+    p.add_argument("--eval_episodes", type=int, default=32)
+    p.add_argument("--eval_ep_len", type=int, default=None)
+    p.add_argument("--eval_warm_start", choices=["auto", "on", "off"], default="auto",
+                   help="warm-started ticks after tick 0; auto: iff --streaming")
     return p
 
 
@@ -186,8 +242,22 @@ def parse_args(argv=None) -> argparse.Namespace:
         deq=True, qp_solve=True, lastqp_solve=False, dtype="float32", rho_max=None,
         layer_type="gcn", kernel_width=3, m=5, max_steps=10, deq_reg=0.1, loss_type="l1",
         policy_out_type=1, deq_out_type=1, fp_type="anderson", grad_type="fp_grad",
-        streaming=False)
+        rho_init_max=1e4)
     return args
+
+
+def streaming_schedule(args: argparse.Namespace) -> int:
+    """The warm rounds per streaming tick, `args.str_al_iter` (set here), as
+    the JAX CLI computes it (`train.py:507-518`): the decades from the warm
+    restart's rho to rho_max*100, two per round, at most deq_iter. Returns
+    the rounds a step runs from the start, `total_deq_iter`, which names
+    the run and scales its mean loss."""
+    rho_max = args.rho_max or (1e8 if args.dtype == "double" else 1e5)
+    rho_warm = min(args.rho_init_max, rho_max * 1e-4)
+    args.str_al_iter = min(int(np.log10(rho_max * 100 / rho_warm) / 2), args.deq_iter)
+    if args.streaming and args.streaming_start_iter == 0:
+        return args.deq_iter + args.str_al_iter * args.streaming_steps
+    return args.deq_iter
 
 
 def main(argv=None) -> Dict:
@@ -196,13 +266,7 @@ def main(argv=None) -> Dict:
     env = make_env(args.env)
     if args.nq <= 0:
         args.nq = env.nq if env.nq <= env.nx // 2 else env.nx // 2
-    gt, val_gt = split_episodes(get_gt_data(env))
-    rng = np.random.default_rng(args.seed)
-    # windows of a one-step history (H = 1): the policy sees the current state
-    val_samples = [to_device(preprocess_batch(args.env, env.nx,
-                                              sample_trajectory(val_gt, args.bsz, 1, args.T, rng)),
-                             device)
-                   for _ in range(10)]
+    total_deq_iter = streaming_schedule(args)
     policy = build_policy(vars(args), env, device).init(args.seed)
     optimizer = make_optimizer(policy, args.lr)
     if args.load and args.ckpt:
@@ -212,17 +276,40 @@ def main(argv=None) -> Dict:
         opt_state = read_port_checkpoint(path)["optimizer"] if is_port_checkpoint(path) else None
         if opt_state is not None:
             optimizer.load_state_dict(opt_state)
+    if args.eval:
+        from .eval import eval_policy
+
+        stats = eval_policy(vars(args), env, policy, n_episodes=args.eval_episodes,
+                            ep_len=args.eval_ep_len, seed=args.seed, device=device,
+                            warm_start={"auto": None, "on": True, "off": False}[args.eval_warm_start])
+        print(json.dumps(stats), flush=True)
+        return stats
+    gt, val_gt = split_episodes(get_gt_data(env))
+    rng = np.random.default_rng(args.seed)
+    # windows of a one-step history (H = 1): the policy sees the current
+    # state; a streaming step reads T + L states
+    horizon = args.T + args.streaming_steps * int(args.streaming)
+    val_samples = [to_device(preprocess_batch(args.env, env.nx,
+                                              sample_trajectory(val_gt, args.bsz, 1, horizon, rng)),
+                             device)
+                   for _ in range(10)]
     name = args.name or (f"{args.model_type}_{args.env}_T{args.T}_bsz{args.bsz}"
-                         f"_deq_iter{args.deq_iter}_hdim{args.hdim}")
+                         f"_deq_iter{total_deq_iter}_hdim{args.hdim}")
     ckpt_path = os.path.join(args.models_dir, name)
 
+    streaming_active = bool(args.streaming and args.streaming_start_iter == 0)
+    loss = make_loss_fn(args.streaming_steps if streaming_active else 0)
     best_val, curve = np.inf, []
     losses, losses_end = [], []
     t_window = time.perf_counter()
     for i in range(args.max_train_steps):
+        if args.streaming and not streaming_active and i > args.streaming_start_iter:
+            # the switch to the streaming step (`train.py:630-634`)
+            streaming_active = True
+            loss = make_loss_fn(args.streaming_steps)
         batch = preprocess_batch(args.env, env.nx,
-                                 sample_trajectory(gt, args.bsz, 1, args.T, rng))
-        out = train_step(policy, optimizer, to_device(batch, device))
+                                 sample_trajectory(gt, args.bsz, 1, horizon, rng))
+        out = train_step(policy, optimizer, to_device(batch, device), loss=loss)
         losses.append(out["loss"])
         losses_end.append(out["loss_end"])
         if i % args.val_every != 0:
@@ -230,12 +317,13 @@ def main(argv=None) -> Dict:
         if not np.isfinite(float(out["loss"])):
             print(f"[{i}] non-finite loss, stopping", flush=True)
             break
-        val = validate_policy(policy, val_samples)
+        val = validate_policy(policy, val_samples, loss)
         row = {"step": i,
-               "loss_avg": float(torch.stack(losses).mean()) / args.deq_iter,
+               "loss_avg": float(torch.stack(losses).mean()) / total_deq_iter,
                "loss_end": float(torch.stack(losses_end).mean()),
                "val_loss_end": val, "grad_norm": float(out["grad_norm"]),
-               "s_per_step": (time.perf_counter() - t_window) / len(losses)}
+               "s_per_step": (time.perf_counter() - t_window) / len(losses),
+               "streaming": streaming_active}
         curve.append(row)
         print(json.dumps(row), flush=True)
         if args.save and val < best_val:
@@ -244,8 +332,10 @@ def main(argv=None) -> Dict:
         losses, losses_end = [], []
         t_window = time.perf_counter()
     result = {"env": args.env, "steps": args.max_train_steps, "bsz": args.bsz,
-              "hdim": args.hdim, "deq_iter": args.deq_iter, "device": str(device),
-              "curve": curve, "checkpoint": ckpt_path if args.save else None}
+              "hdim": args.hdim, "deq_iter": args.deq_iter, "total_deq_iter": total_deq_iter,
+              "streaming_steps": args.streaming_steps if args.streaming else 0,
+              "device": str(device), "curve": curve,
+              "checkpoint": ckpt_path if args.save else None}
     print(json.dumps(result), flush=True)
     return result
 

@@ -140,8 +140,8 @@ def test_entry_points_raise_without_a_card_when_no_device_is_given(monkeypatch):
 
 def test_build_policy_refuses_what_is_not_ported():
     _, args = load_checkpoint(CKPT, "cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        build_policy({**args, "streaming": True}, make_env("rexquadrotor"), "cpu")
+    with pytest.raises(NotImplementedError, match="policy_variant"):
+        build_policy({**args, "policy_variant": "mem"}, make_env("rexquadrotor"), "cpu")
 
 
 def test_port_imports_no_jax():

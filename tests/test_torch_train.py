@@ -441,7 +441,7 @@ def test_train_cli_saves_a_checkpoint_that_eval_reads(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--model_type", "diff-mpc-deq"], "model_type"),
-    (["--streaming"], "not ported"),
+    (["--recompute_Qq"], "not ported"),
     (["--dtype", "double"], "not ported"),
 ])
 def test_train_cli_refuses_what_is_not_ported(argv, match):

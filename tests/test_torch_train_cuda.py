@@ -94,3 +94,56 @@ def test_training_step_backward_launches_the_warp_kernel_once_per_round():
     assert pol.backward_solves == 6
     grads = [p.grad for p in pol.model.parameters() if p.grad is not None]
     assert grads and all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def _streaming_pair(seed=0):
+    """The same f64 pendulum policy (hdim 32, N 2) on the card and on the CPU."""
+    env = make_env("pendulum")
+    cfg = PolicyConfig(nx=env.nx, nu=env.nu, nq=1, T=5, dt=env.dt, hdim=32, deq_iter=2,
+                       rho_max=1e5, solver_dtype=torch.float64)
+    pols = {}
+    for dev in ("cuda", "cpu"):
+        pols[dev] = DEQMPCPolicy(cfg, env, device=dev).init(seed)
+        pols[dev].model.double()
+    return env, pols
+
+
+def test_warm_tick_on_card_matches_cpu():
+    env, pols = _streaming_pair()
+    obs = env.reset(torch.Generator().manual_seed(3), 8, device="cpu", dtype=torch.float64)
+    obs1 = obs + 0.05
+    u = {}
+    for dev, pol in pols.items():
+        with torch.inference_mode():
+            out = pol.forward(obs.to(dev))
+            out = pol.forward_warm_start(obs1.to(dev), out["carry"])
+        u[dev] = out["trajs"][-1][2].cpu()
+    torch.testing.assert_close(u["cuda"], u["cpu"], rtol=1e-6, atol=1e-6)
+    assert pols["cuda"].newton_steps > 0
+
+
+def test_streaming_step_on_card_matches_cpu():
+    env, pols = _streaming_pair(seed=1)
+    rng = np.random.default_rng(1)
+    L = 2
+    state = np.stack([rng.uniform(0, 2 * np.pi, (8, 5 + L)), rng.uniform(-1, 1, (8, 5 + L))], -1)
+    batch = {"obs": state[:, :1], "state": state + 0.01 * rng.normal(size=state.shape),
+             "action": rng.normal(size=(8, 5 + L, 1)), "mask": np.ones((8, 5 + L))}
+    grads, losses = {}, {}
+    for dev, pol in pols.items():
+        launches = dict(bt.block_tridiag_solve.launches_by_kernel)
+        d = train.make_loss_fn(L)(pol, train.to_device(batch, dev, torch.float64))
+        before = pol.backward_solves
+        d["loss"].backward()
+        assert pol.backward_solves - before == 2 * (1 + L)  # one per round of each forward
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            by_kernel = bt.block_tridiag_solve.launches_by_kernel
+            assert by_kernel["warp"] > launches["warp"] and by_kernel["block"] == launches["block"]
+        losses[dev] = float(d["loss"])
+        grads[dev] = {k: p.grad.cpu() for k, p in pol.model.named_parameters() if p.grad is not None}
+    assert np.isclose(losses["cuda"], losses["cpu"], rtol=1e-6, atol=0)
+    assert set(grads["cuda"]) == set(grads["cpu"])
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k], g, rtol=1e-5,
+                                   atol=1e-5 * float(g.abs().max()), msg=k)
