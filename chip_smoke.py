@@ -69,16 +69,50 @@ Phases, each announced on a line of its own with the seconds since start:
      then 3 steps as for config #4, with one implicit backward per round
      of each forward (18 a step);
  11. `training/bench_streaming.py` at bsz 1 and 256, BENCH_REPS reps: its
-     JSON line (cold and warm tick times, realtime margin).
-Before them, one `[chip_smoke] report {...}` line holds every number
+     JSON line (cold and warm tick times, realtime margin);
+ 12-14. serve `checkpoints/cartpole_sac_deqmpc` (config #2, T 10, blocks
+     n = 5), `checkpoints/flying_deqmpc_nn` (config #3, deq-mpc-nn, n = 18)
+     and `checkpoints/flying_obstacles` (config #3b, 40 spheres, the 4
+     nearest per knot as constraint rows): tick 0 of NEW_EPISODES start
+     states on the card against the CPU in f32 and f64 within ACTION_TOL
+     (for #3b the first OBSTACLE_STARTS states beside a sphere, so their
+     rows are active, and the share of samples with an active row
+     printed), a planted fault (O transposed) the f32 check must reject,
+     every Newton system of the card's f32 tick 0 against the plain solve
+     on the card, then NEW_EPISODES x NEW_TICKS closed-loop ticks through
+     `eval_policy`, the counts set to 0 just before: no NaN, every solve
+     through the warp kernel, Newton steps, retries and launches per tick;
+     one more tick under torch.profiler for the device's idle share;
+ 15-16. train config #2 (from `cartpole_sac_deqmpc`, the SAC teacher's
+     data) and config #3 (from `flying_deqmpc_nn`) as config #4: step 0
+     card vs CPU (f32 loss; f64 loss and gradient norm; the planted sign
+     flip rejected), 3 steps at bsz 128 on one seeded batch, all warp, one
+     implicit backward per round, one profiled step.
+Phases 1-3 run first, alone. Phases 4-10 and 12-16 then run in the
+worker processes of LANES, three at once, each lane's phases in turn
+(each keeps the card idle over 95% of its time, so the three share it);
+their times are taken under that sharing. Phase 11 runs last, alone.
+Before the end, one `[chip_smoke] report {...}` line holds every number
 measured. The last three lines are the nvidia-smi line, the kernels JSON
 and {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
+
+  python3 chip_smoke.py --phases serve_cartpole,train_flying
+
+runs the build, the kernel checks and the named phases only (for
+debugging; it prints neither the kernels line nor the ok line). Phase
+names: serve_rexquad, train_rexquad, train_pendulum, serve_pendulum,
+serve_streaming, train_streaming, bench_streaming, serve_cartpole,
+serve_flying, serve_flying_obstacles, train_cartpole, train_flying.
 """
+import argparse
+import concurrent.futures
 import dataclasses
+import multiprocessing
 import json
 import re
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -87,6 +121,9 @@ T0 = time.perf_counter()
 CKPT = "checkpoints/rexquad_deqmpc"
 PENDULUM_CKPT = "checkpoints/pendulum_deqmpc"
 STREAMING_CKPT = "checkpoints/rexquad_streaming"
+CARTPOLE_CKPT = "checkpoints/cartpole_sac_deqmpc"  # config #2
+FLYING_CKPT = "checkpoints/flying_deqmpc_nn"  # config #3
+FLYING_OBS_CKPT = "checkpoints/flying_obstacles"  # config #3b
 EPISODES, TICKS = 32, 10
 PENDULUM_EPISODES, PENDULUM_TICKS = 32, 20
 TRAIN_BSZ, TRAIN_STEPS, PENDULUM_TRAIN_STEPS = 128, 3, 5
@@ -95,6 +132,9 @@ TRAIN_BSZ, TRAIN_STEPS, PENDULUM_TRAIN_STEPS = 128, 3, 5
 STREAM_STATES, STREAM_WARM_TICKS = 4, 2
 STREAM_EPISODES, STREAM_TICKS = 32, 10
 BENCH_FLEET, BENCH_REPS = 256, 3
+# configs #2, #3 and #3b: the tick-0 states and the closed loop; in #3b's
+# tick-0 check the first OBSTACLE_STARTS states start beside a sphere
+NEW_EPISODES, NEW_TICKS, OBSTACLE_STARTS = 32, 20, 8
 SERVE_SHAPE = (EPISODES, 5, 16)  # the solve's shape on the served path
 # the solve's shape in the config-#4 and config-#5 training steps, forward
 # and backward, whose numbers the kernels line reports
@@ -103,12 +143,17 @@ PENDULUM_SERVE_SHAPE = (PENDULUM_EPISODES, 5, 3)  # the served pendulum's solve
 # bench_streaming's single vehicle and fleet, and a batch that leaves the
 # warp kernel's last CTA part empty
 STREAM_SHAPES = [(1, 5, 16), (3, 5, 16), (BENCH_FLEET, 5, 16)]
-KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (128, 10, 5), (64, 20, 18), (4, 200, 18), SERVE_SHAPE,
-                 MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40), *STREAM_SHAPES]
+# the cartpole's blocks (T 10, n 5) and the flying cartpole's (T 5, n 18),
+# served and trained
+NEW_SHAPES = [(NEW_EPISODES, 10, 5), (TRAIN_BSZ, 10, 5), (NEW_EPISODES, 5, 18),
+              (TRAIN_BSZ, 5, 18)]
+KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (64, 20, 18), (4, 200, 18), SERVE_SHAPE,
+                 MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40), *STREAM_SHAPES, *NEW_SHAPES]
 TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
                 ((1024, 5, 16), torch.float32), ((128, 5, 3), torch.float32),
                 ((64, 20, 18), torch.float64), ((1, 5, 16), torch.float32),
-                ((BENCH_FLEET, 5, 16), torch.float32)]
+                ((BENCH_FLEET, 5, 16), torch.float32),
+                *[(shape, torch.float32) for shape in NEW_SHAPES]]
 # H100 SXM, NVIDIA data sheet: HBM rate; f32 outside the tensor cores,
 # f64 through the tensor cores (DMMA), the fastest each type can run
 HBM_BYTES_PER_S = 3.35e12
@@ -302,13 +347,36 @@ def rel_gap(a, b):
     return abs(float(a) - float(b)) / abs(float(b))
 
 
-def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env, batch_np,
-                  loss=None, sensitivity=True):
-    """A RexQuadrotor training step (config #4, or #5 with the streaming
-    `loss`): step 0 on the card against the CPU, in f32 (the trained
-    configuration) and f64 (tight), with `sensitivity` each beside the
-    card's own move under a perturbation of the start states; then
-    TRAIN_STEPS steps on the card (the main path) and one profiled step."""
+def profiled(bt, fn):
+    """One call of `fn` under torch.profiler (device activity only: host
+    events of ~100k ops take minutes to sum): its wall time, the device's
+    busy time and idle share, and the warp kernel's launches and time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(dev_us(e) for e in kernels)
+    solve = [e for e in kernels if bt.KERNEL_FUNCTIONS["warp"] in e.key]
+    return {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "kernel_launches": sum(e.count for e in kernels),
+            "warp_kernel_launches": sum(e.count for e in solve),
+            "warp_kernel_device_ms": sum(dev_us(e) for e in solve) / 1e3}
+
+
+def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env, batch_np,
+                 loss=None, sensitivity=True):
+    """A training step of a checkpoint's configuration (#4, #2 or #3; #5
+    with the streaming `loss`): step 0 on the card against the CPU, in f32
+    (the trained configuration) and f64 (tight), with `sensitivity` each
+    beside the card's own move under a perturbation of the start states;
+    then TRAIN_STEPS steps on the card (the main path) and one profiled
+    step."""
     loss = loss or train.loss_fn
 
     def fresh(dev, dtype=torch.float32):
@@ -385,24 +453,33 @@ def train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args,
     out["backward_share"] = out["backward_s_median"] / step_s
 
     # one more step under the profiler: the kernel's device time per step
-    # (device activity only: host events of ~100k ops take minutes to sum)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        train.train_step(policy, opt, batch, loss=loss)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(dev_us(e) for e in kernels)
-    solve = [e for e in kernels if bt.KERNEL_FUNCTIONS["warp"] in e.key]
-    out["profiled_step"] = {
-        "wall_s": wall, "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "kernel_launches": sum(e.count for e in kernels),
-        "warp_kernel_launches": sum(e.count for e in solve),
-        "warp_kernel_device_ms": sum(dev_us(e) for e in solve) / 1e3}
+    out["profiled_step"] = profiled(bt, lambda: train.train_step(policy, opt, batch, loss=loss))
     return out
+
+
+def check_train(tr, what, forwards=1):
+    """The checks of a training phase: finite steps, one implicit backward
+    per round of each forward, every solve through the warp kernel, step 0
+    card vs CPU within STEP0_RTOL, the planted sign flip rejected."""
+    for i, s_ in enumerate(tr["steps"]):
+        check(np.isfinite(s_["loss"]) and np.isfinite(s_["grad_norm"]),
+              f"{what} step {i}: loss {s_['loss']}, grad norm {s_['grad_norm']}")
+        check(s_["backward_solves"] == tr["deq_iter"] * forwards
+              and s_["launches_by_kernel"]["warp"] == s_["newton_steps"] + s_["retries"]
+              + s_["backward_solves"] and s_["launches_by_kernel"]["block"] == 0,
+              f"{what} step {i}: solves and launches disagree: {s_}")
+    check_all_warp(tr["counts"], what)
+    check(tr["counts"]["backward_solves"] == TRAIN_STEPS * tr["deq_iter"] * forwards,
+          f"{what}: {tr['counts']['backward_solves']} backward solves in {TRAIN_STEPS} steps")
+    for dtype, key in ((torch.float32, "step0_gap_card_vs_cpu"),
+                       (torch.float64, "step0_gap_card_vs_cpu_f64")):
+        for k, lim in STEP0_RTOL[dtype].items():
+            check(tr[key][k] <= lim,
+                  f"{what} step 0 {k} ({dtype}), card vs CPU: relative gap {tr[key][k]} > {lim}")
+    check(tr["step0_gap_planted_sign_flip_f64"]["grad_norm"]
+          > STEP0_RTOL[torch.float64]["grad_norm"],
+          f"{what}: the f64 step-0 check passed a planted fault: "
+          f"{tr['step0_gap_planted_sign_flip_f64']}")
 
 
 def train_pendulum(bt, train, build_policy, env, batch_np):
@@ -563,6 +640,145 @@ def serve_streaming(bt, tridiag, newton_al, DEQMPCPolicy, PolicyCarry, build_pol
     return out
 
 
+def record_obstacle_rows(policy, obstacle_residuals):
+    """Wrap the policy's AL solve so that each call with obstacles records,
+    per sample, whether a row of its selected spheres is active at the
+    solution. Returns the list the records go to."""
+    ctrl, rows = policy.tracking_mpc.ctrl, []
+    solve = ctrl.solve
+
+    def wrapped(*a, **kw):
+        res = solve(*a, **kw)
+        if kw.get("obstacles") is not None:
+            r, _ = obstacle_residuals(res[0], kw["obstacles"])
+            rows.append((r >= 0).flatten(1).any(dim=1))
+        return res
+
+    ctrl.solve = wrapped
+    return rows
+
+
+def active_share(rows):
+    """Of the recorded (solve, sample) pairs, and of the samples over all
+    solves, the share with an active obstacle row."""
+    if not rows:
+        return None
+    a = torch.stack(rows).float()
+    return {"solves_x_samples": float(a.mean()), "samples": float(a.amax(dim=0).mean())}
+
+
+def serve_config(ckpt, bt, tridiag, newton_al, m):
+    """A checkpoint of configs #2, #3 or #3b, served: tick 0 of NEW_EPISODES
+    start states on the card against the same forward on the CPU, f32 and
+    f64, with the jittered retries of both and a planted fault (O
+    transposed) in the card's f32 forward; every Newton system of the
+    card's f32 tick 0 against the plain solve; then NEW_EPISODES x
+    NEW_TICKS closed-loop ticks through `eval_policy` with the counts set
+    to 0 just before, per tick its Newton steps and retries, and one more
+    tick under the profiler. With obstacles, the first OBSTACLE_STARTS
+    tick-0 states start beside a sphere, and the share of samples with an
+    active obstacle row is recorded at tick 0 and in the closed loop."""
+    state, args = m.load_checkpoint(ckpt, "cuda")
+    env = m.make_env(args["env"])
+    obstacles = m.build_obstacles(env)
+    policy = m.build_policy(args, env, "cuda", obstacles=obstacles)
+    policy.model.load_state_dict(state)
+    x0 = env.reset(torch.Generator().manual_seed(0), NEW_EPISODES, device="cpu")
+    if obstacles is not None:
+        x0[:OBSTACLE_STARTS, :3] = torch.as_tensor(
+            env.obstacle_positions[:OBSTACLE_STARTS], dtype=x0.dtype) + 0.1
+    out = {"env": args["env"], "deq_type": policy.cfg.deq_type, "T": policy.cfg.T,
+           "n": env.nx + env.nu, "ncon": policy.tracking_mpc.ctrl.ncon, "gaps": {},
+           "retries": {}}
+    systems = []
+
+    def first_actions(p, x):
+        return p.forward(x)["trajs"][-1][2][:, 0]
+
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.float64):
+            pols = {}
+            for dev in ("cuda", "cpu"):
+                pols[dev] = m.DEQMPCPolicy(dataclasses.replace(policy.cfg, solver_dtype=dtype),
+                                           env, dev, obstacles=obstacles)
+                pols[dev].model.load_state_dict(state)
+                pols[dev].model.to(dtype)
+            rows = record_obstacle_rows(pols["cuda"], m.obstacle_residuals)
+            newton = pols["cuda"].tracking_mpc.ctrl.newton
+            if dtype == torch.float32:  # keep every Newton system the card solves
+                solve = newton._solve_newton_system
+                newton._solve_newton_system = lambda g, D, O: (
+                    systems.append((g.clone(), D.clone(), O.clone())), solve(g, D, O))[1]
+            t = time.perf_counter()
+            u = {"cuda": first_actions(pols["cuda"], x0.to("cuda", dtype))}
+            torch.cuda.synchronize()
+            out[f"card_tick0_s_{dtype}"] = time.perf_counter() - t
+            newton.__dict__.pop("_solve_newton_system", None)
+            u["cpu"] = first_actions(pols["cpu"], x0.to("cpu", dtype))
+            check(bool(torch.isfinite(u["cuda"]).all()), f"{ckpt}: non-finite action ({dtype})")
+            out["retries"][str(dtype)] = {dev: {"newton_steps": p.newton_steps,
+                                               "retries": p.newton_retries}
+                                         for dev, p in pols.items()}
+            out["gaps"][str(dtype)] = g = action_gap(u["cuda"], u["cpu"])
+            out[f"tick0_active_obstacle_share_{dtype}"] = active_share(rows)
+            print(f"[chip_smoke]   {ckpt} {dtype}: tick-0 action gap {json.dumps(g)}, retries "
+                  f"{json.dumps(out['retries'][str(dtype)])}, active obstacle rows "
+                  f"{json.dumps(active_share(rows))}", flush=True)
+            if dtype == torch.float32:
+                good_solve = newton_al.block_tridiag_solve
+                newton_al.block_tridiag_solve = lambda D, O, b: good_solve(
+                    D, O.mT.contiguous(), b)
+                try:
+                    u_bad = first_actions(pols["cuda"], x0.to("cuda", dtype))
+                finally:
+                    newton_al.block_tridiag_solve = good_solve
+                out["gaps"]["planted_fault_O_transposed"] = action_gap(u_bad, u["cpu"])
+                print(f"[chip_smoke]   planted fault: tick-0 action gap "
+                      f"{json.dumps(out['gaps']['planted_fault_O_transposed'])}", flush=True)
+    out["served_systems"] = check_served_systems(bt, tridiag, systems, torch.float32)
+
+    rows = record_obstacle_rows(policy, m.obstacle_residuals)
+    per_tick, forward = [], policy.forward
+
+    def record(*a):
+        c0 = policy_counts(policy)
+        res = forward(*a)
+        c1 = policy_counts(policy)
+        per_tick.append({k: c1[k] - c0[k] for k in ("newton_steps", "retries")})
+        return res
+
+    policy.forward = record
+    torch.cuda.synchronize()
+    before = policy_counts(policy)
+    reset_counts(bt)
+    res = m.eval_policy(args, env, policy, n_episodes=NEW_EPISODES, ep_len=NEW_TICKS, seed=0,
+                        device="cuda")
+    res["counts"] = path_counts(bt, policy, before)
+    res["launches_per_tick"] = res["counts"]["launches"] / NEW_TICKS
+    res["per_tick"] = per_tick
+    res["active_obstacle_share"] = active_share(rows)
+    policy.forward = forward
+    x = env.reset(torch.Generator().manual_seed(1), NEW_EPISODES, device="cuda")
+    with torch.inference_mode():
+        res["profiled_tick"] = profiled(bt, lambda: policy.forward(x))
+    out["closed_loop"] = res
+    return out
+
+
+def check_served(sv, ckpt):
+    """The checks of a served configuration (`serve_config`)."""
+    for dtype in (torch.float32, torch.float64):
+        check(gap_within(sv["gaps"][str(dtype)], dtype),
+              f"{ckpt} tick-0 actions, card vs CPU ({dtype}): {sv['gaps'][str(dtype)]} "
+              f"beyond {ACTION_TOL[dtype]}")
+    check(not gap_within(sv["gaps"]["planted_fault_O_transposed"], torch.float32),
+          f"{ckpt}: the tick-0 check passed a planted fault (O transposed)")
+    cl = sv["closed_loop"]
+    check(cl["n_nan_episodes"] == 0 and np.isfinite(cl["mean_reward"]),
+          f"{ckpt}: non-finite states or rewards in the closed loop")
+    check_all_warp(cl["counts"], f"{ckpt} closed loop")
+
+
 def action_gap(u_card, u_cpu):
     gap = (u_card.double().cpu() - u_cpu.double()).abs().amax(dim=-1)
     return {"median": float(gap.median()), "p75": float(gap.quantile(0.75)),
@@ -658,24 +874,303 @@ def check_served_systems(bt, tridiag, systems, dtype):
     return st
 
 
-def main() -> int:
+class Ctx(types.SimpleNamespace):
+    """What every phase uses: the port's modules, and the config-#4
+    checkpoint (the served rexquad, the env of configs #4 and #5)."""
+
+    @staticmethod
+    def make():
+        from deqmpc_tpu_torch import data
+        from deqmpc_tpu_torch.envs import make_env
+        from deqmpc_tpu_torch.ops import block_tridiag, tridiag
+        from deqmpc_tpu_torch.policies import DEQMPCPolicy, PolicyCarry, build_policy
+        from deqmpc_tpu_torch.solvers import newton_al
+        from deqmpc_tpu_torch.solvers.al_core import obstacle_residuals
+        from deqmpc_tpu_torch.training import bench_streaming, train
+        from deqmpc_tpu_torch.training.eval import card_info, eval_policy
+        from deqmpc_tpu_torch.utils.checkpoint import load_checkpoint
+
+        c = Ctx(data=data, make_env=make_env, bt=block_tridiag, tridiag=tridiag,
+                DEQMPCPolicy=DEQMPCPolicy, PolicyCarry=PolicyCarry, build_policy=build_policy,
+                newton_al=newton_al, obstacle_residuals=obstacle_residuals,
+                bench_streaming=bench_streaming, train=train, card_info=card_info,
+                eval_policy=eval_policy, load_checkpoint=load_checkpoint,
+                build_obstacles=train.build_obstacles)
+        c.state, c.args = load_checkpoint(CKPT, "cuda")
+        c.env = make_env(c.args["env"])
+        return c
+
+    def expert_batch(self, env_name, env, seed, horizon, teacher="mpc"):
+        """A seeded bsz-TRAIN_BSZ batch of expert windows through the port's
+        pipeline."""
+        gt, _ = self.train.split_episodes(self.data.get_gt_data(env, teacher))
+        return self.train.preprocess_batch(env_name, env.nx, self.data.sample_trajectory(
+            gt, TRAIN_BSZ, 1, horizon, np.random.default_rng(seed)))
+
+
+def phase_serve_rexquad(c):
+    """Config #4 served: tick 0 card vs CPU, the served Newton systems, a
+    planted fault, then EPISODES x TICKS closed-loop ticks."""
+    bt, tridiag, newton_al, env, state = c.bt, c.tridiag, c.newton_al, c.env, c.state
+    policy = c.build_policy(c.args, env, "cuda")
+    policy.model.load_state_dict(state)
+    phase("serve: tick 0 on the card vs the CPU", params=sum(
+        p.numel() for p in policy.model.parameters()), hdim=policy.cfg.hdim)
+    x0 = env.reset(torch.Generator().manual_seed(0), EPISODES, device="cpu")
+    gaps, retries, systems = {}, {}, {}
+
+    def first_actions(p, x):
+        return p.forward(x)["trajs"][-1][2][:, 0]
+
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.float64):
+            pols = {}
+            for dev in ("cuda", "cpu"):
+                cfg = dataclasses.replace(policy.cfg, solver_dtype=dtype)
+                p = c.DEQMPCPolicy(cfg, env, dev)
+                p.model.load_state_dict(state)
+                p.model.to(dtype)
+                pols[dev] = p
+            newton = pols["cuda"].tracking_mpc.ctrl.newton
+            # keep every Newton system the card solves in this forward
+            solve, kept = newton._solve_newton_system, systems.setdefault(dtype, [])
+            newton._solve_newton_system = lambda g, D, O: (
+                kept.append((g.clone(), D.clone(), O.clone())), solve(g, D, O))[1]
+            u = {dev: first_actions(pols[dev], x0.to(dev, dtype)) for dev in ("cuda", "cpu")}
+            newton.__dict__.pop("_solve_newton_system", None)
+            check(bool(torch.isfinite(u["cuda"]).all()), f"non-finite action on the card ({dtype})")
+            retries[str(dtype)] = {dev: {"newton_steps": p.newton_steps,
+                                         "retries": p.newton_retries}
+                                   for dev, p in pols.items()}
+            gaps[str(dtype)] = g = action_gap(u["cuda"], u["cpu"])
+            print(f"[chip_smoke]   {dtype}: tick-0 action gap {json.dumps(g)}, "
+                  f"retries {json.dumps(retries[str(dtype)])}", flush=True)
+            if dtype == torch.float32:
+                # a planted fault: the solve sees O transposed; the gap check
+                # must reject it
+                good_solve = newton_al.block_tridiag_solve
+                newton_al.block_tridiag_solve = lambda D, O, b: good_solve(
+                    D, O.mT.contiguous(), b)
+                u_bad = first_actions(pols["cuda"], x0.to("cuda", dtype))
+                newton_al.block_tridiag_solve = good_solve
+                gaps["planted_fault_O_transposed"] = g_bad = action_gap(u_bad, u["cpu"])
+                print(f"[chip_smoke]   planted fault: tick-0 action gap {json.dumps(g_bad)}",
+                      flush=True)
+            else:
+                # the same f64 forward on the card with the plain solve in
+                # place of the kernel: does the card-vs-CPU gap come from it?
+                good_solve = newton_al.block_tridiag_solve
+                newton_al.block_tridiag_solve = tridiag.block_tridiag_solve
+                u_plain = first_actions(pols["cuda"], x0.to("cuda", dtype))
+                newton_al.block_tridiag_solve = good_solve
+                gaps["f64_plain_solve_on_card"] = action_gap(u_plain, u["cpu"])
+                gaps["f64_kernel_vs_plain_solve_on_card"] = action_gap(u["cuda"], u_plain.cpu())
+                print("[chip_smoke]   f64 with the plain solve on the card: gap to the CPU "
+                      f"{json.dumps(gaps['f64_plain_solve_on_card'])}, to the kernel "
+                      f"{json.dumps(gaps['f64_kernel_vs_plain_solve_on_card'])}", flush=True)
+        # f32 rounding sensitivity of the same forward on the card
+        noise = 1e-6 * torch.randn(x0.shape, generator=torch.Generator().manual_seed(1))
+        u_a = first_actions(policy, x0.cuda())
+        u_b = first_actions(policy, (x0 * (1 + noise)).cuda())
+        gaps["f32_sensitivity_1e-6"] = action_gap(u_a, u_b.cpu())
+        print(f"[chip_smoke]   f32 sensitivity to 1e-6: {json.dumps(gaps['f32_sensitivity_1e-6'])}",
+              flush=True)
+    out = {"tick0_action_gap": gaps, "tick0_retries": retries,
+           "served_systems": [check_served_systems(bt, tridiag, systems[dtype], dtype)
+                              for dtype in (torch.float32, torch.float64)]}
+    for dtype in (torch.float32, torch.float64):
+        check(gap_within(gaps[str(dtype)], dtype),
+              f"tick-0 actions, card vs CPU ({dtype}): {gaps[str(dtype)]} "
+              f"beyond {ACTION_TOL[dtype]}")
+    check(not gap_within(gaps["planted_fault_O_transposed"], torch.float32),
+          "the tick-0 check passed a planted fault (O transposed)")
+
+    phase("serve: closed loop", episodes=EPISODES, ticks=TICKS)
+    reset_counts(bt)
+    steps0 = policy.newton_steps
+    res = c.eval_policy(c.args, env, policy, n_episodes=EPISODES, ep_len=TICKS, seed=0,
+                        device="cuda")
+    launches = bt.block_tridiag_solve.launches
+    by_kernel = dict(bt.block_tridiag_solve.launches_by_kernel)
+    newton_steps = policy.newton_steps - steps0
+    res.update(launches=launches, launches_by_kernel=by_kernel, newton_steps=newton_steps,
+               launches_per_tick=launches / TICKS)
+    out["serve"] = res
+    phase("serve done", **res)
+    check(res["n_nan_episodes"] == 0, "non-finite states in the closed loop")
+    check(np.isfinite(res["mean_reward"]), "non-finite reward")
+    check(newton_steps > 0 and launches >= newton_steps,
+          f"{launches} kernel launches for {newton_steps} Newton steps")
+    check(by_kernel["warp"] == launches and by_kernel["block"] == 0,
+          f"the served path did not go through the warp kernel alone: {by_kernel}")
+    return out, {"launches_by_kernel": by_kernel}
+
+
+def phase_train_rexquad(c):
+    """Config #4 trained from its checkpoint."""
+    phase("train: config #4", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
+    tr4 = train_config(c.bt, c.train, c.build_policy, c.DEQMPCPolicy, c.newton_al, c.state,
+                       c.args, c.env, c.expert_batch(c.args["env"], c.env, 0, c.args["T"]))
+    for s_ in tr4["steps"]:
+        print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+    phase("train: config #4 done", **{k: v for k, v in tr4.items() if k != "steps"})
+    check_train(tr4, "config-#4 training")
+    return tr4, tr4["counts"]
+
+
+def phase_train_pendulum(c):
+    """Config #1 from a seeded fresh policy."""
+    phase("train: config #1", bsz=TRAIN_BSZ, steps=PENDULUM_TRAIN_STEPS)
+    penv = c.make_env("pendulum")
+    tr1 = train_pendulum(c.bt, c.train, c.build_policy, penv,
+                         c.expert_batch("pendulum", penv, 1, c.args["T"]))
+    phase("train: config #1 done", **tr1)
+    check(all(np.isfinite(tr1["losses"])) and all(np.isfinite(tr1["grad_norms"])),
+          f"non-finite loss or gradient norm: {tr1}")
+    check(tr1["losses"][-1] < tr1["losses"][0], f"the loss did not fall: {tr1['losses']}")
+    check_all_warp(tr1["counts"], "config-#1 training")
+    check(tr1["counts"]["backward_solves"] == PENDULUM_TRAIN_STEPS * tr1["deq_iter"],
+          f"{tr1['counts']['backward_solves']} backward solves in {PENDULUM_TRAIN_STEPS} steps")
+    return tr1, tr1["counts"]
+
+
+def phase_serve_pendulum(c):
+    """`pendulum_deqmpc` in closed loop."""
+    phase("serve: pendulum closed loop", episodes=PENDULUM_EPISODES, ticks=PENDULUM_TICKS)
+    sp = serve_pendulum(c.bt, c.newton_al, c.build_policy, c.load_checkpoint, c.make_env,
+                        c.eval_policy)
+    phase("serve: pendulum done", **sp)
+    check(sp["n_nan_episodes"] == 0 and np.isfinite(sp["mean_reward"]),
+          "non-finite states or rewards in the pendulum closed loop")
+    check(sp["block_sizes"] == [3], f"pendulum solves at block sizes {sp['block_sizes']}")
+    check_all_warp(sp["counts"], "pendulum closed loop")
+    return sp, sp["counts"]
+
+
+def phase_serve_streaming(c):
+    """`rexquad_streaming` (config #5) served warm-started."""
+    phase("serve: rexquad_streaming warm-started", states=STREAM_STATES,
+          warm_ticks=STREAM_WARM_TICKS, episodes=STREAM_EPISODES, ticks=STREAM_TICKS)
+    ss = serve_streaming(c.bt, c.tridiag, c.newton_al, c.DEQMPCPolicy, c.PolicyCarry,
+                         c.build_policy, c.load_checkpoint, c.make_env, c.eval_policy)
+    cl = ss["closed_loop"]
+    phase("serve: rexquad_streaming done", **{k: v for k, v in cl.items() if k != "per_tick"})
+    for row in cl["per_tick"]:
+        print(f"[chip_smoke]   tick {json.dumps(row)}", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        for t, g in enumerate(ss["gaps"][str(dtype)]):
+            tol = ACTION_TOL if t == 0 else WARM_ACTION_TOL
+            check(gap_within(g, dtype, tol), f"streaming tick {t}, card vs CPU ({dtype}): {g} "
+                  f"beyond {tol[dtype]}")
+    check(not all(gap_within(g, torch.float64, WARM_ACTION_TOL)
+                  for g in ss["gaps"]["planted_unshifted_carry_f64"][1:]),
+          "the f64 warm-tick check passed a planted fault (the carry left unshifted)")
+    check(cl["n_nan_episodes"] == 0 and np.isfinite(cl["mean_reward"]),
+          "non-finite states or rewards in the streaming closed loop")
+    check(cl["warm_start"] and [r["kind"] for r in cl["per_tick"]]
+          == ["cold"] + ["warm"] * (STREAM_TICKS - 1), "the closed loop was not warm-started")
+    check_all_warp(cl["counts"], "streaming closed loop")
+    return ss, cl["counts"]
+
+
+def phase_train_streaming(c):
+    """Config #5's streaming step from `rexquad_streaming`."""
+    state5, args5 = c.load_checkpoint(STREAMING_CKPT, "cuda")
+    L = args5["streaming_steps"]
+    phase("train: config #5 (streaming)", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, streaming_steps=L)
+    tr5 = train_config(c.bt, c.train, c.build_policy, c.DEQMPCPolicy, c.newton_al, state5, args5,
+                       c.env, c.expert_batch(args5["env"], c.env, 2, args5["T"] + L),
+                       loss=c.train.make_loss_fn(L), sensitivity=False)
+    for s_ in tr5["steps"]:
+        print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+    phase("train: config #5 done", **{k: v for k, v in tr5.items() if k != "steps"})
+    # one implicit backward per round of each of the 1 + L forwards
+    check_train(tr5, "config-#5 training", forwards=1 + L)
+    return tr5, tr5["counts"]
+
+
+def phase_serve_new(ckpt):
+    """Serve config #2, #3 or #3b (`serve_config`)."""
+    def run(c):
+        phase(f"serve: {ckpt}", episodes=NEW_EPISODES, ticks=NEW_TICKS)
+        sv = serve_config(ckpt, c.bt, c.tridiag, c.newton_al, c)
+        cl = sv["closed_loop"]
+        for row in cl["per_tick"]:
+            print(f"[chip_smoke]   tick {json.dumps(row)}", flush=True)
+        phase(f"serve: {ckpt} done", **{k: v for k, v in cl.items() if k != "per_tick"})
+        check_served(sv, ckpt)
+        return sv, cl["counts"]
+    return run
+
+
+def phase_train_new(ckpt, teacher):
+    """Train config #2 or #3 from its checkpoint on its teacher's data."""
+    def run(c):
+        state, args = c.load_checkpoint(ckpt, "cuda")
+        env = c.make_env(args["env"])
+        phase(f"train: {ckpt}", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, teacher=teacher)
+        tr = train_config(c.bt, c.train, c.build_policy, c.DEQMPCPolicy, c.newton_al, state, args,
+                          env, c.expert_batch(args["env"], env, 3, args["T"], teacher),
+                          sensitivity=False)
+        for s_ in tr["steps"]:
+            print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+        phase(f"train: {ckpt} done", **{k: v for k, v in tr.items() if k != "steps"})
+        check_train(tr, f"{ckpt} training")
+        return tr, tr["counts"]
+    return run
+
+
+PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rexquad,
+          "train_pendulum": phase_train_pendulum, "serve_pendulum": phase_serve_pendulum,
+          "serve_streaming": phase_serve_streaming, "train_streaming": phase_train_streaming,
+          "serve_cartpole": phase_serve_new(CARTPOLE_CKPT),
+          "serve_flying": phase_serve_new(FLYING_CKPT),
+          "serve_flying_obstacles": phase_serve_new(FLYING_OBS_CKPT),
+          "train_cartpole": phase_train_new(CARTPOLE_CKPT, "sac"),
+          "train_flying": phase_train_new(FLYING_CKPT, "mpc")}
+# The phases run in LANES worker processes at once, each lane's in turn: a
+# phase keeps the card idle over 95% of its time (its host dispatches the
+# ops one by one), so three host threads share the card with little
+# interference; the kernel timings and bench_streaming run alone. Lanes are
+# balanced on the phases' times when they ran in one process (PERF.md).
+LANES = (("serve_flying_obstacles", "train_streaming"),
+         ("serve_flying", "serve_streaming", "train_rexquad"),
+         ("serve_cartpole", "train_flying", "train_cartpole", "serve_rexquad", "train_pendulum",
+          "serve_pendulum"))
+LANE_THREADS = 2  # torch's CPU threads per lane (the CPU references)
+
+
+def run_lane(names, t0):
+    """A worker process: run the named phases in turn on the card, its
+    clock started at the parent's `t0`. Returns {phase: (its report, the
+    path's launch counts)}; a failed check raises into the parent."""
+    global T0
+    T0 = t0
+    torch.set_num_threads(LANE_THREADS)
+    c = Ctx.make()
+    c.bt._load_library()
+    return {name: PHASES[name](c) for name in names}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after the kernel checks (default: all)")
+    selected = ap.parse_args(argv).phases
+    selected = None if selected is None else selected.split(",")
+    if selected is not None and not set(selected) <= set(PHASES) | {"bench_streaming"}:
+        print(f"chip_smoke: unknown phases {sorted(set(selected) - set(PHASES))}",
+              file=sys.stderr)
+        return 2
     # -- 1. device ----------------------------------------------------------
     phase("device")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
-    from deqmpc_tpu_torch.data import get_gt_data, sample_trajectory
-    from deqmpc_tpu_torch.envs import make_env
-    from deqmpc_tpu_torch.ops import block_tridiag as bt
-    from deqmpc_tpu_torch.ops import tridiag
-    from deqmpc_tpu_torch.policies import DEQMPCPolicy, PolicyCarry, build_policy
-    from deqmpc_tpu_torch.solvers import newton_al
-    from deqmpc_tpu_torch.training import bench_streaming, train
-    from deqmpc_tpu_torch.training.eval import card_info, eval_policy
-    from deqmpc_tpu_torch.utils.checkpoint import load_checkpoint
-
-    smi = card_info()["nvidia_smi"]
+    c = Ctx.make()
+    bt, tridiag = c.bt, c.tridiag
+    smi = c.card_info()["nvidia_smi"]
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"[chip_smoke] nvidia-smi: {smi}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, numpy {np.__version__}", flush=True)
@@ -727,236 +1222,46 @@ def main() -> int:
     for row in timings:
         print(f"[chip_smoke]   timing {json.dumps(row)}", flush=True)
 
-    # -- 4. load ------------------------------------------------------------
-    phase("load")
-    state, args = load_checkpoint(CKPT, "cuda")
-    env = make_env(args["env"])
-    policy = build_policy(args, env, "cuda")
-    policy.model.load_state_dict(state)
-    n_params = sum(p.numel() for p in policy.model.parameters())
-    phase("load done", params=n_params, hdim=policy.cfg.hdim, deq_iter=policy.cfg.deq_iter)
+    # -- 4-16. the paths, in LANES worker processes ------------------------------
+    lanes = [[n for n in lane if selected is None or n in selected] for lane in LANES]
+    lanes = [lane for lane in lanes if lane]
+    phase("paths", lanes=lanes)
+    results, failures = {}, []
+    if lanes:
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(len(lanes), mp_context=ctx) as pool:
+            for fut in [pool.submit(run_lane, lane, T0) for lane in lanes]:
+                try:
+                    results.update(fut.result())
+                except Exception as e:  # every lane runs to its end; the first failure raises
+                    failures.append(e)
+    report.update({name: data for name, (data, _) in results.items()})
+    if failures:
+        raise failures[0]
+    paths = {name: counts for name, (_, counts) in results.items()}
 
-    # -- 5. serve -------------------------------------------------------------
-    phase("serve: tick 0 on the card vs the CPU")
-    x0 = env.reset(torch.Generator().manual_seed(0), EPISODES, device="cpu")
-    gaps, retries, systems = {}, {}, {}
+    # -- 11. bench_streaming, alone on the card ------------------------------------
+    if selected is None or "bench_streaming" in selected:
+        phase("bench_streaming", fleet_bsz=BENCH_FLEET, n_rep=BENCH_REPS)
+        bench = c.bench_streaming.main(["--fleet_bsz", str(BENCH_FLEET), "--n_rep",
+                                        str(BENCH_REPS), "--n_warmup", "1"])
+        report["bench_streaming"] = bench
+        check(all(np.isfinite(bench[k][f]) for k in ("single", "fleet")
+                  for f in ("cold_ms", "warm_ms_per_tick")), f"bench_streaming: {bench}")
 
-    def first_actions(p, x):
-        return p.forward(x)["trajs"][-1][2][:, 0]
+    if selected is not None:  # a debugging run: no kernels line, no ok line
+        report["wall_s"] = time.perf_counter() - T0
+        print(f"[chip_smoke] report {json.dumps(report)}", flush=True)
+        phase("done", phases=selected)
+        return 0
 
-    with torch.inference_mode():
-        for dtype in (torch.float32, torch.float64):
-            pols = {}
-            for dev in ("cuda", "cpu"):
-                cfg = dataclasses.replace(policy.cfg, solver_dtype=dtype)
-                p = DEQMPCPolicy(cfg, env, dev)
-                p.model.load_state_dict(state)
-                p.model.to(dtype)
-                pols[dev] = p
-            newton = pols["cuda"].tracking_mpc.ctrl.newton
-            # keep every Newton system the card solves in this forward
-            solve, kept = newton._solve_newton_system, systems.setdefault(dtype, [])
-            newton._solve_newton_system = lambda g, D, O: (
-                kept.append((g.clone(), D.clone(), O.clone())), solve(g, D, O))[1]
-            u = {dev: first_actions(pols[dev], x0.to(dev, dtype)) for dev in ("cuda", "cpu")}
-            newton.__dict__.pop("_solve_newton_system", None)
-            check(bool(torch.isfinite(u["cuda"]).all()), f"non-finite action on the card ({dtype})")
-            retries[str(dtype)] = {dev: {"newton_steps": p.newton_steps,
-                                         "retries": p.newton_retries}
-                                   for dev, p in pols.items()}
-            gaps[str(dtype)] = g = action_gap(u["cuda"], u["cpu"])
-            print(f"[chip_smoke]   {dtype}: tick-0 action gap {json.dumps(g)}, "
-                  f"retries {json.dumps(retries[str(dtype)])}", flush=True)
-            if dtype == torch.float32:
-                # a planted fault: the solve sees O transposed; the gap check
-                # must reject it
-                good_solve = newton_al.block_tridiag_solve
-                newton_al.block_tridiag_solve = lambda D, O, b: good_solve(
-                    D, O.mT.contiguous(), b)
-                u_bad = first_actions(pols["cuda"], x0.to("cuda", dtype))
-                newton_al.block_tridiag_solve = good_solve
-                gaps["planted_fault_O_transposed"] = g_bad = action_gap(u_bad, u["cpu"])
-                print(f"[chip_smoke]   planted fault: tick-0 action gap {json.dumps(g_bad)}",
-                      flush=True)
-            else:
-                # the same f64 forward on the card with the plain solve in
-                # place of the kernel: does the card-vs-CPU gap come from it?
-                good_solve = newton_al.block_tridiag_solve
-                newton_al.block_tridiag_solve = tridiag.block_tridiag_solve
-                u_plain = first_actions(pols["cuda"], x0.to("cuda", dtype))
-                newton_al.block_tridiag_solve = good_solve
-                gaps["f64_plain_solve_on_card"] = action_gap(u_plain, u["cpu"])
-                gaps["f64_kernel_vs_plain_solve_on_card"] = action_gap(u["cuda"], u_plain.cpu())
-                print("[chip_smoke]   f64 with the plain solve on the card: gap to the CPU "
-                      f"{json.dumps(gaps['f64_plain_solve_on_card'])}, to the kernel "
-                      f"{json.dumps(gaps['f64_kernel_vs_plain_solve_on_card'])}", flush=True)
-        # f32 rounding sensitivity of the same forward on the card
-        noise = 1e-6 * torch.randn(x0.shape, generator=torch.Generator().manual_seed(1))
-        u_a = first_actions(policy, x0.cuda())
-        u_b = first_actions(policy, (x0 * (1 + noise)).cuda())
-        gaps["f32_sensitivity_1e-6"] = action_gap(u_a, u_b.cpu())
-        print(f"[chip_smoke]   f32 sensitivity to 1e-6: {json.dumps(gaps['f32_sensitivity_1e-6'])}",
-              flush=True)
-    report["tick0_action_gap"] = gaps
-    report["tick0_retries"] = retries
-    report["served_systems"] = [check_served_systems(bt, tridiag, systems[dtype], dtype)
-                                for dtype in (torch.float32, torch.float64)]
-    for dtype in (torch.float32, torch.float64):
-        check(gap_within(gaps[str(dtype)], dtype),
-              f"tick-0 actions, card vs CPU ({dtype}): {gaps[str(dtype)]} "
-              f"beyond {ACTION_TOL[dtype]}")
-    check(not gap_within(gaps["planted_fault_O_transposed"], torch.float32),
-          "the tick-0 check passed a planted fault (O transposed)")
-
-    phase("serve: closed loop", episodes=EPISODES, ticks=TICKS)
-    reset_counts(bt)
-    steps0 = policy.newton_steps
-    res = eval_policy(args, env, policy, n_episodes=EPISODES, ep_len=TICKS, seed=0,
-                      device="cuda")
-    launches = bt.block_tridiag_solve.launches
-    by_kernel = dict(bt.block_tridiag_solve.launches_by_kernel)
-    newton_steps = policy.newton_steps - steps0
-    res.update(launches=launches, launches_by_kernel=by_kernel, newton_steps=newton_steps,
-               launches_per_tick=launches / TICKS)
-    report["serve"] = res
-    phase("serve done", **res)
-    check(res["n_nan_episodes"] == 0, "non-finite states in the closed loop")
-    check(np.isfinite(res["mean_reward"]), "non-finite reward")
-    check(newton_steps > 0 and launches >= newton_steps,
-          f"{launches} kernel launches for {newton_steps} Newton steps")
-    check(by_kernel["warp"] == launches and by_kernel["block"] == 0,
-          f"the served path did not go through the warp kernel alone: {by_kernel}")
-
-    # -- 6. train, config #4 ----------------------------------------------------
-    phase("train: config #4", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
-
-    def expert_batch(env_name, env_, seed, horizon=args["T"]):
-        gt, _ = train.split_episodes(get_gt_data(env_))
-        return train.preprocess_batch(env_name, env_.nx,
-                                      sample_trajectory(gt, TRAIN_BSZ, 1, horizon,
-                                                        np.random.default_rng(seed)))
-
-    tr4 = train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env,
-                        expert_batch(args["env"], env, 0))
-    report["train_rexquad"] = tr4
-    for s_ in tr4["steps"]:
-        print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
-    phase("train: config #4 done", **{k: v for k, v in tr4.items() if k != "steps"})
-    for i, s_ in enumerate(tr4["steps"]):
-        check(np.isfinite(s_["loss"]) and np.isfinite(s_["grad_norm"]),
-              f"step {i}: loss {s_['loss']}, grad norm {s_['grad_norm']}")
-        check(s_["backward_solves"] == tr4["deq_iter"]
-              and s_["launches_by_kernel"]["warp"] == s_["newton_steps"] + s_["retries"]
-              + s_["backward_solves"] and s_["launches_by_kernel"]["block"] == 0,
-              f"step {i}: solves and launches disagree: {s_}")
-    check_all_warp(tr4["counts"], "config-#4 training")
-    check(tr4["counts"]["backward_solves"] == TRAIN_STEPS * tr4["deq_iter"],
-          f"{tr4['counts']['backward_solves']} backward solves in {TRAIN_STEPS} steps")
-    for dtype, key in ((torch.float32, "step0_gap_card_vs_cpu"),
-                       (torch.float64, "step0_gap_card_vs_cpu_f64")):
-        for k, lim in STEP0_RTOL[dtype].items():
-            check(tr4[key][k] <= lim,
-                  f"step 0 {k} ({dtype}), card vs CPU: relative gap {tr4[key][k]} > {lim}")
-    check(tr4["step0_gap_planted_sign_flip_f64"]["grad_norm"]
-          > STEP0_RTOL[torch.float64]["grad_norm"],
-          f"the f64 step-0 check passed a planted fault: {tr4['step0_gap_planted_sign_flip_f64']}")
-
-    # -- 7. train, config #1 ----------------------------------------------------
-    phase("train: config #1", bsz=TRAIN_BSZ, steps=PENDULUM_TRAIN_STEPS)
-    penv = make_env("pendulum")
-    tr1 = train_pendulum(bt, train, build_policy, penv, expert_batch("pendulum", penv, 1))
-    report["train_pendulum"] = tr1
-    phase("train: config #1 done", **tr1)
-    check(all(np.isfinite(tr1["losses"])) and all(np.isfinite(tr1["grad_norms"])),
-          f"non-finite loss or gradient norm: {tr1}")
-    check(tr1["losses"][-1] < tr1["losses"][0], f"the loss did not fall: {tr1['losses']}")
-    check_all_warp(tr1["counts"], "config-#1 training")
-    check(tr1["counts"]["backward_solves"] == PENDULUM_TRAIN_STEPS * tr1["deq_iter"],
-          f"{tr1['counts']['backward_solves']} backward solves in {PENDULUM_TRAIN_STEPS} steps")
-
-    # -- 8. serve pendulum_deqmpc -------------------------------------------------
-    phase("serve: pendulum closed loop", episodes=PENDULUM_EPISODES, ticks=PENDULUM_TICKS)
-    sp = serve_pendulum(bt, newton_al, build_policy, load_checkpoint, make_env, eval_policy)
-    report["serve_pendulum"] = sp
-    phase("serve: pendulum done", **sp)
-    check(sp["n_nan_episodes"] == 0 and np.isfinite(sp["mean_reward"]),
-          "non-finite states or rewards in the pendulum closed loop")
-    check(sp["block_sizes"] == [3], f"pendulum solves at block sizes {sp['block_sizes']}")
-    check_all_warp(sp["counts"], "pendulum closed loop")
-
-    # -- 9. serve rexquad_streaming, warm-started ---------------------------------
-    phase("serve: rexquad_streaming warm-started", states=STREAM_STATES,
-          warm_ticks=STREAM_WARM_TICKS, episodes=STREAM_EPISODES, ticks=STREAM_TICKS)
-    ss = serve_streaming(bt, tridiag, newton_al, DEQMPCPolicy, PolicyCarry, build_policy,
-                         load_checkpoint, make_env, eval_policy)
-    report["serve_streaming"] = ss
-    cl = ss["closed_loop"]
-    phase("serve: rexquad_streaming done", **{k: v for k, v in cl.items() if k != "per_tick"})
-    for row in cl["per_tick"]:
-        print(f"[chip_smoke]   tick {json.dumps(row)}", flush=True)
-    for dtype in (torch.float32, torch.float64):
-        for t, g in enumerate(ss["gaps"][str(dtype)]):
-            tol = ACTION_TOL if t == 0 else WARM_ACTION_TOL
-            check(gap_within(g, dtype, tol), f"streaming tick {t}, card vs CPU ({dtype}): {g} "
-                  f"beyond {tol[dtype]}")
-    check(not all(gap_within(g, torch.float64, WARM_ACTION_TOL)
-                  for g in ss["gaps"]["planted_unshifted_carry_f64"][1:]),
-          "the f64 warm-tick check passed a planted fault (the carry left unshifted)")
-    check(cl["n_nan_episodes"] == 0 and np.isfinite(cl["mean_reward"]),
-          "non-finite states or rewards in the streaming closed loop")
-    check(cl["warm_start"] and [r["kind"] for r in cl["per_tick"]]
-          == ["cold"] + ["warm"] * (STREAM_TICKS - 1), "the closed loop was not warm-started")
-    check_all_warp(cl["counts"], "streaming closed loop")
-
-    # -- 10. train, config #5 ----------------------------------------------------
-    state5, args5 = load_checkpoint(STREAMING_CKPT, "cuda")
-    L = args5["streaming_steps"]
-    phase("train: config #5 (streaming)", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, streaming_steps=L)
-    tr5 = train_rexquad(bt, train, build_policy, DEQMPCPolicy, newton_al, state5, args5, env,
-                        expert_batch(args5["env"], env, 2, args5["T"] + L),
-                        loss=train.make_loss_fn(L), sensitivity=False)
-    report["train_streaming"] = tr5
-    for s_ in tr5["steps"]:
-        print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
-    phase("train: config #5 done", **{k: v for k, v in tr5.items() if k != "steps"})
-    for i, s_ in enumerate(tr5["steps"]):
-        check(np.isfinite(s_["loss"]) and np.isfinite(s_["grad_norm"]),
-              f"streaming step {i}: loss {s_['loss']}, grad norm {s_['grad_norm']}")
-        # one implicit backward per round of each of the 1 + L forwards
-        check(s_["backward_solves"] == tr5["deq_iter"] * (1 + L)
-              and s_["launches_by_kernel"]["warp"] == s_["newton_steps"] + s_["retries"]
-              + s_["backward_solves"] and s_["launches_by_kernel"]["block"] == 0,
-              f"streaming step {i}: solves and launches disagree: {s_}")
-    check_all_warp(tr5["counts"], "config-#5 training")
-    for dtype, key in ((torch.float32, "step0_gap_card_vs_cpu"),
-                       (torch.float64, "step0_gap_card_vs_cpu_f64")):
-        for k, lim in STEP0_RTOL[dtype].items():
-            check(tr5[key][k] <= lim, f"streaming step 0 {k} ({dtype}), card vs CPU: "
-                  f"relative gap {tr5[key][k]} > {lim}")
-    check(tr5["step0_gap_planted_sign_flip_f64"]["grad_norm"]
-          > STEP0_RTOL[torch.float64]["grad_norm"],
-          f"the f64 streaming step-0 check passed a planted fault: "
-          f"{tr5['step0_gap_planted_sign_flip_f64']}")
-
-    # -- 11. bench_streaming ---------------------------------------------------------
-    phase("bench_streaming", fleet_bsz=BENCH_FLEET, n_rep=BENCH_REPS)
-    bench = bench_streaming.main(["--fleet_bsz", str(BENCH_FLEET), "--n_rep", str(BENCH_REPS),
-                                  "--n_warmup", "1"])
-    report["bench_streaming"] = bench
-    check(all(np.isfinite(bench[k][f]) for k in ("single", "fleet")
-              for f in ("cold_ms", "warm_ms_per_tick")), f"bench_streaming: {bench}")
-
-    # -- 12. result ------------------------------------------------------------
+    # -- 17. result ------------------------------------------------------------
     main_t = timings[0]
-    paths = {"train_streaming": tr5["counts"], "serve_streaming": cl["counts"],
-             "train_rexquad": tr4["counts"], "train_pendulum": tr1["counts"],
-             "serve_rexquad": {"launches_by_kernel": by_kernel},
-             "serve_pendulum": sp["counts"]}
     kernels = [{
         "name": f"block_tridiag_solve[{kernel}]", "route": "cuda",
         "source": "deqmpc_tpu_torch/ops/csrc/block_tridiag.cu",
         "replaces": "deqmpc_tpu/ops/pallas_tridiag.py:100",
-        "launches": tr5["counts"]["launches_by_kernel"][kernel],
+        "launches": paths["train_streaming"]["launches_by_kernel"][kernel],
         "launches_by_path": {k: v["launches_by_kernel"][kernel] for k, v in paths.items()},
         "max_abs_err": worst[f"{kernel}/{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}x{MAIN_SHAPE[2]}/torch.float32"],
         "ms": main_t[f"{kernel}_ms"], "device_ms": main_t[f"{kernel}_device_ms"],

@@ -89,6 +89,10 @@ class Env:
     def state_clip(self, x):
         return x
 
+    def is_bad_state(self, x, reward):
+        """Per state, whether it or its reward is NaN or infinite."""
+        return ~torch.isfinite(x).all(dim=-1) | ~torch.isfinite(reward)
+
     def step(self, x, u):
         """Functional step: (x, u) -> (x_next, reward)."""
         u = self.action_clip(u)

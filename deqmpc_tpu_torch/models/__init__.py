@@ -1,4 +1,4 @@
-"""DEQ trunk: the gcn blocks and the DEQ layer."""
-from .deq_layer import DEQLayer, DEQLayerConfig
+"""DEQ trunk: the gcn blocks, the DEQ layer and its feed-forward variant."""
+from .deq_layer import DEQLayer, DEQLayerConfig, FFDNetwork
 
-__all__ = ["DEQLayer", "DEQLayerConfig"]
+__all__ = ["DEQLayer", "DEQLayerConfig", "FFDNetwork"]

@@ -1,10 +1,12 @@
 """DEQ layer: the fixed-point trajectory-proposal network (gcn trunk).
 
-Port of `DEQLayerConfig` and `DEQLayer` (`deqmpc_tpu/models/deq_layer.py:80-302`):
-the input encoder embeds the observation and the carried trajectory,
-`_fixed_point` runs Anderson on the cell and then applies the cell three
-more times, and `_decode` turns the (T-1) x nx head output into the
-reference trajectory.
+Port of `DEQLayerConfig`, `DEQLayer` and `FFDNetwork`
+(`deqmpc_tpu/models/deq_layer.py:80-311`): the input encoder embeds the
+observation and the carried trajectory, `_fixed_point` runs Anderson on
+the cell and then applies the cell three more times (or, with
+`fp_type="single"`, the feed-forward `FFDNetwork` of deq-mpc-nn, applies
+it once to the carried z, with its gradient), and `_decode` turns the
+(T-1) x nx head output into the reference trajectory.
 
 Gradient ("phantom gradient", `deq_layer.py:254-272`): Anderson runs
 under `torch.no_grad()` from a detached z, its result is detached, and
@@ -41,6 +43,7 @@ class DEQLayerConfig:
     kernel_width: int = 3
     deq_expand: int = 4
     num_groups: int = 4
+    fp_type: str = "anderson"  # or "single": one cell application
 
 
 class DEQLayer(nn.Module):
@@ -100,11 +103,15 @@ class DEQLayer(nn.Module):
 
     def _fixed_point(self, inj, z):
         """Anderson on the cell without a gradient, then three cell
-        applications with one (the phantom gradient)."""
+        applications with one (the phantom gradient); with fp_type
+        "single", one cell application with its gradient."""
         c = self.cfg
 
         def f(zz):
             return self.cell(inj, zz)
+
+        if c.fp_type == "single":
+            return f(z)
 
         with torch.no_grad():
             z_star, _ = anderson(f, z.detach(), m=c.fp_m, max_steps=c.fp_max_steps)
@@ -127,3 +134,12 @@ class DEQLayer(nn.Module):
         z_out = self._fixed_point(self.input(x_prev[:, 1:], obs), z)
         x_ref, u_ref = self._decode(obs, x_prev, self.out(z_out))
         return {"x_t": obs, "x_ref": x_ref, "u_ref": u_ref}, z_out
+
+
+class FFDNetwork(DEQLayer):
+    """The feed-forward proposal network of deq_type "nn"
+    (`deq_layer.py:305-311`): the same trunk, one un-accelerated cell
+    application per round."""
+
+    def __init__(self, cfg: DEQLayerConfig):
+        super().__init__(dataclasses.replace(cfg, fp_type="single"))

@@ -16,19 +16,23 @@ tick never backpropagates into the tick before it. `forward_warm_start`
 starts from a carry: after round 0's network call the AL state is shifted
 once more (`warm_start_shift`, rho clamped to `rho_warm_max`), and every
 tracking solve takes the streaming exit (and, with `linearize_once`, the
-linear model). `build_policy` mirrors `training/train.py:191-246` for
-the base variant; the other variants wait for later slices.
+linear model). With `deq_type="nn"` (deq-mpc-nn) the network is the
+feed-forward `FFDNetwork`; with an obstacle field and
+`obstacle_constraints` (the default) every tracking solve carries the
+rows of the spheres nearest to its reference. `build_policy` mirrors
+`training/train.py:191-246` for the base variant; the other variants and
+the obstacle-aware network input wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, NamedTuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import torch
 
 from .. import resolve_device
-from ..models.deq_layer import DEQLayer, DEQLayerConfig
-from ..solvers import ALState
+from ..models.deq_layer import DEQLayer, DEQLayerConfig, FFDNetwork
+from ..solvers import ALState, ObstacleSet
 from .tracking_mpc import TrackingMPC
 
 
@@ -65,10 +69,14 @@ class PolicyConfig:
     deq_reg: float = 0.1
     out_type: int = 1        # policy_out_type
     loss_type: str = "l1"
+    deq_type: str = "deq"    # or "nn": the feed-forward FFDNetwork
+    # gates the solver's obstacle rows when the policy is given a field
+    obstacle_constraints: bool = True
 
 
 class DEQMPCPolicy:
-    def __init__(self, cfg: PolicyConfig, env, device="cuda"):
+    def __init__(self, cfg: PolicyConfig, env, device="cuda",
+                 obstacles: Optional[ObstacleSet] = None):
         self.cfg = cfg
         self.env = env
         self.nx, self.nu, self.nq, self.T = cfg.nx, cfg.nu, cfg.nq, cfg.T
@@ -85,11 +93,12 @@ class DEQMPCPolicy:
             deq_iter=cfg.deq_iter, fp_m=cfg.fp_m, fp_max_steps=cfg.fp_max_steps,
             kernel_width=cfg.kernel_width,
         )
-        self.model = DEQLayer(mcfg).to(self.device)
+        self.model = (FFDNetwork if cfg.deq_type == "nn" else DEQLayer)(mcfg).to(self.device)
         self.tracking_mpc = TrackingMPC(
             env, cfg.T, al_iter=cfg.al_iter, dtype=cfg.solver_dtype,
             max_newton_steps=cfg.max_newton_steps, rho_max=cfg.rho_max,
-            dyn_res_tol=cfg.dyn_res_tol, device=self.device,
+            dyn_res_tol=cfg.dyn_res_tol,
+            obstacles=obstacles if cfg.obstacle_constraints else None, device=self.device,
         )
 
     def init(self, seed: int) -> "DEQMPCPolicy":
@@ -169,16 +178,20 @@ class DEQMPCPolicy:
         return PolicyCarry(z=shift(z), x=shift(x), u=shift(u), solver=sol_state)
 
 
-def build_policy(args: Mapping[str, Any], env, device="cuda") -> DEQMPCPolicy:
+def build_policy(args: Mapping[str, Any], env, device="cuda",
+                 obstacles: Optional[ObstacleSet] = None) -> DEQMPCPolicy:
     """The policy a checkpoint's `args` describe (`training/train.py:191-246`,
-    base deq-mpc variant only)."""
+    the base deq-mpc variant with the deq or the nn network). `obstacles`:
+    the env's field (`training.train.build_obstacles`), or None."""
     a = dict(args)
     unsupported = {
         "deq": (True,), "qp_solve": (True,), "lastqp_solve": (False,),
         "solver_type": ("al",), "policy_variant": ("base",), "addmem": (False,),
-        "deq_type": ("deq",), "layer_type": ("gcn",),
+        "deq_type": ("deq", "nn"), "layer_type": ("gcn",), "obstacle_net_input": (False,),
         "fp_type": ("anderson",), "deq_out_type": (1,), "grad_type": ("fp_grad",),
         "recompute_Qq": (False,), "compute_dtype": ("f32",),
+        # the FlyingCartpole's state-weight scale, which the port's envs keep at 1
+        "Qscale": (1.0,),
     }
     for key, ok in unsupported.items():
         if key in a and a[key] not in ok:
@@ -196,6 +209,8 @@ def build_policy(args: Mapping[str, Any], env, device="cuda") -> DEQMPCPolicy:
         solver_dtype=torch.float64 if double else torch.float32, rho_max=rho_max,
         rho_init_max=a.get("rho_init_max", 1e4), linearize_once=a.get("linearize_once", False),
         deq_reg=a.get("deq_reg", 0.1), out_type=a.get("policy_out_type", 1),
-        loss_type=a.get("loss_type", "l1"),
+        loss_type=a.get("loss_type", "l1"), deq_type=a.get("deq_type", "deq"),
+        # a missing key means true, as the JAX CLI's getattr default
+        obstacle_constraints=a.get("obstacle_constraints", True),
     )
-    return DEQMPCPolicy(cfg, env, device=device)
+    return DEQMPCPolicy(cfg, env, device=device, obstacles=obstacles)

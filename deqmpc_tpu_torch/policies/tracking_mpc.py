@@ -5,21 +5,27 @@ Port of `TrackingMPC.__init__`, `init_state`, `warm_start_state`,
 `compute_pf` and `__call__` (`deqmpc_tpu/policies/tracking_mpc.py:27-185`)
 for the AL path, cold-started or streaming: the diagonal cost
 Q = diag([Qlqr, Rlqr]) per knot point, the linear term p = -Q * xu_ref and
-the constant f = 0.5 xu_ref'Q xu_ref. The q-scaling, auxiliary-cost,
+the constant f = 0.5 xu_ref'Q xu_ref. With `obstacles` (the field), each
+call selects the `n_obs_sel` spheres nearest to the reference's knots,
+from x_ref cast to the solver dtype, and hands them to the solve
+(`tracking_mpc.py:142-143,183`). The q-scaling, auxiliary-cost,
 interior-point and cost-refresh options wait for later slices.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
-from ..solvers import ALMPC, ALState, QuadCost
+from ..solvers import ALMPC, ALState, ObstacleSet, QuadCost
 
 
 class TrackingMPC:
     def __init__(self, env, T: int, al_iter: int = 2, dtype=torch.float32,
                  max_newton_steps: int = 4, rho_max: float = 1e8,
-                 dyn_res_tol: float = 1e-3, device="cuda"):
+                 dyn_res_tol: float = 1e-3, obstacles: Optional[ObstacleSet] = None,
+                 n_obs_sel: int = 4, device="cuda"):
         self.env = env
         self.nx, self.nu, self.T = env.nx, env.nu, T
         self.dtype = dtype
@@ -36,7 +42,7 @@ class TrackingMPC:
             u_lower=env.action_space.low, u_upper=env.action_space.high,
             dyn=env.dynamics, dyn_jac=dyn_jac, al_iter=al_iter, dtype=dtype,
             max_newton_steps=max_newton_steps, rho_max=rho_max,
-            dyn_res_tol=dyn_res_tol, device=device,
+            dyn_res_tol=dyn_res_tol, obstacles=obstacles, n_obs_sel=n_obs_sel, device=device,
         )
 
     def init_state(self, bsz: int) -> ALState:
@@ -63,9 +69,12 @@ class TrackingMPC:
         Q = self.Q0.expand(bsz, self.T, self.nx + self.nu)
         p, f = self.compute_pf(xu_ref, Q)
         cost = QuadCost(Q=Q, q=p, f=f)
+        obs = self.ctrl.select_obstacles(x_ref.to(self.dtype))
         if linearize_once and streaming:
-            x, u, status, new_state = self.ctrl.solve_linearize_once(x0, cost, state)
+            x, u, status, new_state = self.ctrl.solve_linearize_once(x0, cost, state,
+                                                                     obstacles=obs)
         else:
             x, u, status, new_state = self.ctrl.solve(
-                x0, cost, state, x_ref, u_ref, al_iter=al_iters, streaming=streaming)
+                x0, cost, state, x_ref, u_ref, al_iter=al_iters, streaming=streaming,
+                obstacles=obs)
         return x.to(net_dtype), u.to(net_dtype), status, new_state

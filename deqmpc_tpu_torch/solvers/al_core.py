@@ -1,6 +1,6 @@
 """Augmented-Lagrangian math core: residuals, merit, block KKT assembly.
 
-Port of `deqmpc_tpu/solvers/al_core.py:48-289`. The gradient J'lam and
+Port of `deqmpc_tpu/solvers/al_core.py:33-289`. The gradient J'lam and
 the Hessian blocks of diag(Q) + rho*J'J are assembled directly from the
 per-step dynamics Jacobians, so the Newton system stays
 block-tridiagonal for `ops.block_tridiag_solve`.
@@ -8,19 +8,28 @@ block-tridiagonal for `ops.block_tridiag_solve`.
 Constraint ordering (as in the JAX package):
   equality rows  : defects r_t = x_{t+1} - f(x_t, u_t) for t = 0..T-2,
                    then the initial-state row x_0 - x0;
-  inequality rows: per step t, [u_t - u_hi ; u_lo - u_t] (2*nu rows).
-Duals `lam` are flat: [eq (T*nx) | ineq (T*2*nu)]. Obstacle rows and
-the state-estimator variant are not ported yet.
+  inequality rows: per step t, [u_t - u_hi ; u_lo - u_t] (2*nu rows),
+                   then, with an `ObstacleSet`, per step t the rows
+                   radius^2 - |xyz_t - o_k|^2 of its n_sel selected
+                   spheres.
+Duals `lam` are flat: [eq (T*nx) | u-box (T*2*nu) | obstacles (T*n_sel)].
+The state-estimator variant is not ported.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F_nn
 
 
-def _no_obstacles(obs):
-    if obs is not None:
-        raise NotImplementedError("obstacle constraint rows are not ported yet")
+class ObstacleSet(NamedTuple):
+    """The obstacle centers selected per (sample, step), (bsz, T, n_sel, 3),
+    and the spheres' common radius. `ALMPC` also holds the whole field in
+    one, with centers (N, 3)."""
+
+    centers: torch.Tensor
+    radius: float
 
 
 # --------------------------------------------------------------------------
@@ -41,14 +50,25 @@ def ineq_residuals(u, u_lower, u_upper):
     return res, torch.clamp(res, min=0.0)
 
 
+def obstacle_residuals(x, obs: ObstacleSet):
+    """Sphere rows radius^2 - |xyz - center|^2 <= 0. Returns (res,
+    res_clamp), each (bsz, T, n_sel)."""
+    d2 = torch.sum((x[..., None, :3] - obs.centers) ** 2, dim=-1)
+    res = obs.radius**2 - d2
+    return res, torch.clamp(res, min=0.0)
+
+
 def full_residuals(dyn, x, u, x0, u_lower, u_upper, obs=None):
     """All residuals, flattened: (res, res_clamp), each (bsz, ncon)."""
-    _no_obstacles(obs)
     bsz = x.shape[0]
     r_eq = eq_residuals(dyn, x, u, x0).reshape(bsz, -1)
     r_in, r_in_c = ineq_residuals(u, u_lower, u_upper)
-    return (torch.cat([r_eq, r_in.reshape(bsz, -1)], dim=1),
-            torch.cat([r_eq, r_in_c.reshape(bsz, -1)], dim=1))
+    parts, parts_c = [r_eq, r_in.reshape(bsz, -1)], [r_eq, r_in_c.reshape(bsz, -1)]
+    if obs is not None:
+        r_o, r_o_c = obstacle_residuals(x, obs)
+        parts.append(r_o.reshape(bsz, -1))
+        parts_c.append(r_o_c.reshape(bsz, -1))
+    return torch.cat(parts, dim=1), torch.cat(parts_c, dim=1)
 
 
 # --------------------------------------------------------------------------
@@ -82,8 +102,9 @@ def merit_grad_blocks(xu, Q, q, x0, lam, rho, F, u_lower, u_upper, dyn_eq_res,
     xu: (bsz, T, n); F: dynamics Jacobians [A_t B_t] (bsz, T-1, nx, n);
     dyn_eq_res: the stacked eq residuals (bsz, T, nx), computed by the
     caller alongside F. Returns g (bsz, T, n), D (bsz, T, n, n),
-    O (bsz, T-1, n, n), res and res_clamp (bsz, ncon)."""
-    _no_obstacles(obs)
+    O (bsz, T-1, n, n), res and res_clamp (bsz, ncon). With `obs`, the
+    obstacle rows add their gradient on the xyz part of each block and,
+    where active, rho J_o'J_o on its 3x3."""
     bsz, T, n = xu.shape
     nx = x0.shape[-1]
     nu = n - nx
@@ -108,12 +129,27 @@ def merit_grad_blocks(xu, Q, q, x0, lam, rho, F, u_lower, u_upper, dyn_eq_res,
     g = g + eq_terms(lam_eq) + eq_terms(rho[..., None] * r_eq)
 
     r_in, r_in_c = ineq_residuals(u, u_lower, u_upper)
-    lam_in = lam[:, T * nx:].reshape(bsz, T, 2 * nu)
+    lam_in = lam[:, T * nx: T * nx + T * 2 * nu].reshape(bsz, T, 2 * nu)
     # rows [u - u_hi] have +I_u, rows [u_lo - u] have -I_u
     gu = (lam_in[..., :nu] - lam_in[..., nu:]) + rho[..., None] * (
         r_in_c[..., :nu] - r_in_c[..., nu:])
     g = g + F_nn.pad(gu, (nx, 0))
     active_u = (r_in >= 0).to(dtype)
+    res_parts = [r_eq.reshape(bsz, -1), r_in.reshape(bsz, -1)]
+    res_c_parts = [r_eq.reshape(bsz, -1), r_in_c.reshape(bsz, -1)]
+
+    if obs is not None:
+        r_o, r_o_c = obstacle_residuals(xu[..., :nx], obs)  # (bsz, T, n_sel)
+        res_parts.append(r_o.reshape(bsz, -1))
+        res_c_parts.append(r_o_c.reshape(bsz, -1))
+        n_sel = r_o.shape[-1]
+        off = T * nx + T * 2 * nu
+        lam_o = lam[:, off: off + T * n_sel].reshape(bsz, T, n_sel)
+        jac_obs = -2.0 * (xu[..., None, :3] - obs.centers)  # (bsz, T, n_sel, 3)
+        active_obs = (r_o >= 0).to(dtype)
+        go = (torch.einsum("btk,btkj->btj", lam_o, jac_obs)
+              + rho[..., None] * torch.einsum("btk,btkj->btj", r_o_c * active_obs, jac_obs))
+        g = g + F_nn.pad(go, (0, n - 3))
 
     # ----- Hessian blocks: diag(Q) + rho * J_c'J_c ------------------------
     eye_x = torch.cat([torch.ones(nx, dtype=dtype, device=device),
@@ -128,15 +164,18 @@ def merit_grad_blocks(xu, Q, q, x0, lam, rho, F, u_lower, u_upper, dyn_eq_res,
     # active control-box rows: diagonal on the u-part
     act = active_u[..., :nu] + active_u[..., nu:]
     D = D + rho4 * torch.diag_embed(F_nn.pad(act, (nx, 0)))
+    # active obstacle rows: a 3x3 on the xyz part
+    if obs is not None:
+        JoJo = torch.einsum("btk,btki,btkj->btij", active_obs, jac_obs, jac_obs)
+        D = D + rho4 * F_nn.pad(JoJo, (0, n - 3, 0, n - 3))
 
     # super-diagonal: block (t, t+1) = -rho * F_t' S = [-rho F_t' | 0]
     O = F_nn.pad(-rho4 * F.mT, (0, nu))
 
-    res = torch.cat([r_eq.reshape(bsz, -1), r_in.reshape(bsz, -1)], dim=1)
-    res_c = torch.cat([r_eq.reshape(bsz, -1), r_in_c.reshape(bsz, -1)], dim=1)
-    return g, D, O, res, res_c
+    return g, D, O, torch.cat(res_parts, dim=1), torch.cat(res_c_parts, dim=1)
 
 
-def num_constraints(T: int, nx: int, nu: int) -> int:
-    """Constraint count: T*nx eq rows and 2*nu*T control-box rows."""
-    return T * nx + 2 * nu * T
+def num_constraints(T: int, nx: int, nu: int, n_obs_sel: int = 0) -> int:
+    """Constraint count: T*nx eq rows, 2*nu*T control-box rows and
+    n_obs_sel*T obstacle rows."""
+    return T * nx + 2 * nu * T + n_obs_sel * T

@@ -22,8 +22,14 @@ The gradient is cut where the JAX package cuts it (`al_mpc.py:247-248,
 iterate of the dual/penalty update and the returned state's x and u are
 detached. So only the last AL iteration's Newton call receives a
 cotangent, through its implicit backward into the cost (Q, q); once the
-rho-cap exit has fired, that cotangent is 0. Obstacles and the
-between-iteration cost refresh (`compute_Qq`) wait for later slices.
+rho-cap exit has fired, that cotangent is 0.
+
+Obstacles (`ALMPC(obstacles=...)`, the whole field of spheres):
+`select_obstacles(x_ref)` picks the `n_obs_sel` nearest per (sample,
+step) and returns them; the caller passes that set to `solve(...,
+obstacles=)`, which adds their rows to every Newton call and dual update
+of the solve. Nothing is stored on the solver between calls. The
+between-iteration cost refresh (`compute_Qq`) waits for a later slice.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from .. import resolve_device
-from .al_core import compute_cost, full_residuals, num_constraints
+from .al_core import ObstacleSet, compute_cost, full_residuals, num_constraints
 from .newton_al import NewtonAL
 from .types import ALState, LinDx, NewtonALConfig, QuadCost
 
@@ -71,11 +77,13 @@ class ALMPC:
     """Batched AL trajectory optimizer.
 
     dyn(x, u): (..., nx), (..., nu) -> (..., nx)
-    dyn_jac(x, u): -> (x_next, F) with F = [A|B] (..., nx, nx+nu)"""
+    dyn_jac(x, u): -> (x_next, F) with F = [A|B] (..., nx, nx+nu)
+    obstacles: the field, an ObstacleSet with centers (N, 3), or None."""
 
     def __init__(self, nx: int, nu: int, T: int, u_lower, u_upper,
                  dyn: Callable, dyn_jac: Callable, al_iter: int = 2, rho_max: float = 1e8,
                  max_newton_steps: int = 4, dyn_res_tol: float = 1e-3,
+                 obstacles: Optional[ObstacleSet] = None, n_obs_sel: int = 4,
                  dtype=torch.float32, device="cuda"):
         self.nx, self.nu, self.T = nx, nu, T
         self.n = nx + nu
@@ -86,7 +94,10 @@ class ALMPC:
         kw = dict(dtype=dtype, device=self.device)
         self.u_lower = torch.as_tensor(u_lower, **kw)
         self.u_upper = torch.as_tensor(u_upper, **kw)
-        self.ncon = num_constraints(T, nx, nu)
+        self.obstacles = None if obstacles is None else ObstacleSet(
+            torch.as_tensor(obstacles.centers, **kw), float(obstacles.radius))
+        self.n_obs_sel = n_obs_sel if obstacles is not None else 0
+        self.ncon = num_constraints(T, nx, nu, self.n_obs_sel)
         self.dyn = dyn
         self.dyn_jac = dyn_jac
         cfg = NewtonALConfig(nx=nx, nu=nu, T=T, max_newton_steps=max_newton_steps,
@@ -114,12 +125,30 @@ class ALMPC:
                        x=shift(state.x), u=shift(state.u),
                        has_init=torch.ones_like(state.has_init))
 
-    def _al_update(self, dyn, xu, x0, lam, rho):
+    def select_obstacles(self, x_ref) -> Optional[ObstacleSet]:
+        """The `n_obs_sel` obstacles nearest to each knot of x_ref (bsz, T, >= 3),
+        nearest first, as the JAX package's `lax.top_k` orders them
+        (`al_mpc.py:172-183`); None without obstacles. Returns the set and
+        stores nothing."""
+        if self.obstacles is None:
+            return None
+        centers = self.obstacles.centers
+        d2 = torch.sum((x_ref.detach()[..., None, :3] - centers) ** 2, dim=-1)  # (bsz, T, N)
+        idx = torch.topk(-d2, self.n_obs_sel, dim=-1, largest=True, sorted=True).indices
+        return ObstacleSet(centers[idx], self.obstacles.radius)
+
+    def _check_obstacles(self, obstacles):
+        if self.obstacles is not None and obstacles is None:
+            raise ValueError("obstacle MPC: pass obstacles=select_obstacles(x_ref) to the solve")
+        if self.obstacles is None and obstacles is not None:
+            raise ValueError("obstacles passed to a solver built without obstacles")
+
+    def _al_update(self, dyn, xu, x0, lam, rho, obs=None):
         """Residuals at the (detached) iterate, then the dual step (inequality
-        duals clamped at 0) and the uncapped penalty step."""
+        and obstacle duals clamped at 0) and the uncapped penalty step."""
         nx, neq = self.nx, self.T * self.nx
         res, res_c = full_residuals(dyn, xu[..., :nx], xu[..., nx:], x0,
-                                    self.u_lower, self.u_upper)
+                                    self.u_lower, self.u_upper, obs)
         lam_next = lam + rho * res
         lam_next = torch.cat([lam_next[:, :neq], torch.clamp(lam_next[:, neq:], min=0.0)],
                              dim=1)
@@ -134,7 +163,7 @@ class ALMPC:
 
     def solve(self, x0, cost: QuadCost, state: ALState, x_init=None, u_init=None,
               al_iter: Optional[int] = None, streaming: bool = False,
-              return_history: bool = False, obstacles=None,
+              return_history: bool = False, obstacles: Optional[ObstacleSet] = None,
               compute_Qq: Optional[Callable] = None,
               warm_start_history: Optional[Tuple] = None):
         """Run the AL loop. Returns (x, u, status, new_state), and with
@@ -145,9 +174,11 @@ class ALMPC:
         reference). streaming: the rho-cap exit; status is then True on
         every sample once it fired, else False. warm_start_history: a
         (cost, lam, rho) history of an earlier solve, restarting the duals
-        and penalty through `warm_start_al`."""
-        if obstacles is not None or compute_Qq is not None:
-            raise NotImplementedError("obstacles and compute_Qq are not ported yet")
+        and penalty through `warm_start_al`. obstacles: the selected set
+        (`select_obstacles`), required when the solver has obstacles."""
+        if compute_Qq is not None:
+            raise NotImplementedError("compute_Qq is not ported yet")
+        self._check_obstacles(obstacles)
         al_iter = self.al_iter if al_iter is None else al_iter
         nx, dtype = self.nx, self.dtype
         x0 = x0.to(dtype)
@@ -170,13 +201,13 @@ class ALMPC:
         hist = ([compute_cost(xu.detach(), Q, q)], [lam], [rho])
         for _ in range(al_iter):
             xu_in = xu.detach()
-            xu, _ = self.newton(xu_in, x0, lam, rho, Q, q)
+            xu, _ = self.newton(xu_in, x0, lam, rho, Q, q, obstacles)
             if streaming:
                 # freeze the iterate once the rho-cap exit has fired
                 xu = torch.where(stopped, xu_in, xu)
             # the dual / penalty update takes no gradient (`al_mpc.py:269-271`)
             xu_sg = xu.detach()
-            lam_next, rho_uncapped, _ = self._al_update(self.dyn, xu_sg, x0, lam, rho)
+            lam_next, rho_uncapped, _ = self._al_update(self.dyn, xu_sg, x0, lam, rho, obstacles)
             # cap the penalty: in f32 an uncapped rho overflows the merit
             rho_next = torch.clamp(rho_uncapped, max=self.rho_max)
             if streaming:
@@ -220,13 +251,15 @@ class ALMPC:
 
         return dyn, lambda x, u: (dyn(x, u), F)
 
-    def solve_linearize_once(self, x0, cost: QuadCost, state: ALState, num_iters: int = 8):
+    def solve_linearize_once(self, x0, cost: QuadCost, state: ALState, num_iters: int = 8,
+                             obstacles: Optional[ObstacleSet] = None):
         """Streaming 'linearize once' mode (`al_mpc.py:324-386`): freeze the
         Jacobians at the warm-started iterate and run `num_iters` AL
         iterations on the linear model, with two exits kept as JAX writes
         them: the stall exit (the batch's global ||res_c|| not below the
         best so far, starting from inf) and the rho-cap exit on the
         *capped* rho (`>=`). Returns (x, u, status, new_state)."""
+        self._check_obstacles(obstacles)
         dtype = self.dtype
         x0 = x0.to(dtype)
         Q = cost.Q.to(dtype)
@@ -239,9 +272,10 @@ class ALMPC:
         prev_res = torch.tensor(float("inf"), dtype=dtype, device=x0.device)
         for _ in range(num_iters):
             xu_in = xu.detach()
-            xu, _ = newton(xu_in, x0, lam, rho, Q, q)
+            xu, _ = newton(xu_in, x0, lam, rho, Q, q, obstacles)
             xu = torch.where(stopped, xu_in, xu)
-            lam_next, rho_uncapped, res_c = self._al_update(lin_dyn, xu.detach(), x0, lam, rho)
+            lam_next, rho_uncapped, res_c = self._al_update(lin_dyn, xu.detach(), x0, lam, rho,
+                                                            obstacles)
             lam = torch.where(stopped, lam, lam_next)
             rho = torch.where(stopped, rho, torch.clamp(rho_uncapped, max=self.rho_max))
             cur_res = torch.linalg.vector_norm(res_c)

@@ -14,7 +14,11 @@ Port of `deqmpc_tpu/solvers/newton_al.py:58-233`. The forward:
     with a strongly jittered diagonal (`newton_al.py:110-126`);
   * the 20 step sizes 2^{0..-19} of the line search are evaluated in one
     batched merit call; NaN merits never win, and only improvements are
-    accepted (`newton_al.py:130-147`).
+    accepted (`newton_al.py:130-147`);
+  * the selected obstacles, an `ObstacleSet` or None, come with each call
+    (`obs=`) and reach the merit, the residual norm, the assembly and the
+    implicit backward's (D, O). JAX reads them through a closure over the
+    solver's state (`newton_al.py:59-65,159`); here nothing is stored.
 
 The backward is the JAX package's `custom_vjp` (`newton_al.py:203-232`)
 as a `torch.autograd.Function`: the forward loop runs on detached inputs,
@@ -34,7 +38,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..ops.block_tridiag import block_tridiag_solve
-from .al_core import full_residuals, merit_function, merit_grad_blocks
+from .al_core import ObstacleSet, full_residuals, merit_function, merit_grad_blocks
 from .types import NewtonALConfig
 
 
@@ -60,7 +64,7 @@ def _count(name: str) -> property:
 
 
 class NewtonAL:
-    """newton_al(xu, x0, lam, rho, Q, q) -> (xu_out, status).
+    """newton_al(xu, x0, lam, rho, Q, q, obs=None) -> (xu_out, status).
 
     dyn(x, u): batched discrete dynamics over leading dims.
     dyn_jac(x, u): -> (x_next, F) with F = [A B]: (..., nx, nx+nu).
@@ -89,25 +93,25 @@ class NewtonAL:
         return NewtonAL(self.cfg, dyn, dyn_jac, self.u_lower, self.u_upper, self.counts)
 
     # -- pieces -----------------------------------------------------------------
-    def _merit(self, xu, Q, q, x0, lam, rho):
+    def _merit(self, xu, Q, q, x0, lam, rho, obs):
         return merit_function(self.dyn, xu, Q, q, x0, lam, rho,
-                              self.u_lower, self.u_upper)
+                              self.u_lower, self.u_upper, obs)
 
-    def _dyn_res_norm(self, xu, x0):
+    def _dyn_res_norm(self, xu, x0, obs):
         """Norm of the clamped residuals over the whole batch: the exit
         rule is global, as in the JAX package."""
         nx = self.cfg.nx
         _, res_c = full_residuals(self.dyn, xu[..., :nx], xu[..., nx:], x0,
-                                  self.u_lower, self.u_upper)
+                                  self.u_lower, self.u_upper, obs)
         return torch.linalg.vector_norm(res_c)
 
-    def _assemble(self, xu, Q, q, x0, lam, rho):
+    def _assemble(self, xu, Q, q, x0, lam, rho, obs):
         nx = self.cfg.nx
         x, u = xu[..., :nx], xu[..., nx:]
         x_next, F = self.dyn_jac(x[:, :-1], u[:, :-1])
         r_eq = torch.cat([x[:, 1:] - x_next, (x[:, 0] - x0)[:, None]], dim=1)
         return merit_grad_blocks(xu, Q, q, x0, lam, rho, F, self.u_lower,
-                                 self.u_upper, dyn_eq_res=r_eq)
+                                 self.u_upper, dyn_eq_res=r_eq, obs=obs)
 
     def _solve_newton_system(self, g, D, O):
         """Solve H x = -g; retry once with a jittered diagonal when the
@@ -123,7 +127,7 @@ class NewtonAL:
             D.shape[-1], dtype=D.dtype, device=D.device)
         return -block_tridiag_solve(Dj.contiguous(), O, g)
 
-    def _line_search(self, xu, update, merit_now, Q, q, x0, lam, rho):
+    def _line_search(self, xu, update, merit_now, Q, q, x0, lam, rho, obs):
         """n_ls step sizes 2^{0..-(n_ls-1)} in one batched merit call; keep
         the best improving candidate per sample."""
         n_ls = self.cfg.n_ls
@@ -134,8 +138,9 @@ class NewtonAL:
         def rep(a):
             return a[None].expand(n_ls, *a.shape).reshape(n_ls * bsz, *a.shape[1:])
 
+        obs_rep = None if obs is None else ObstacleSet(rep(obs.centers), obs.radius)
         merits = self._merit(cands.reshape(n_ls * bsz, *xu.shape[1:]),
-                             rep(Q), rep(q), rep(x0), rep(lam), rep(rho))
+                             rep(Q), rep(q), rep(x0), rep(lam), rep(rho), obs_rep)
         merits = merits.reshape(n_ls, bsz)
         # NaN merits must never win the argmin
         merits = torch.where(torch.isfinite(merits), merits,
@@ -149,13 +154,14 @@ class NewtonAL:
         return xu_new, new_merit, torch.mean(steps[best])
 
     # -- forward ----------------------------------------------------------------
-    def __call__(self, xu, x0, lam, rho, Q, q):
-        """(xu_out, status). Differentiable in Q and q when grad mode is on."""
+    def __call__(self, xu, x0, lam, rho, Q, q, obs: Optional[ObstacleSet] = None):
+        """(xu_out, status). Differentiable in Q and q when grad mode is on.
+        `obs`: the obstacles selected for this call, or None."""
         if torch.is_grad_enabled() and (Q.requires_grad or q.requires_grad):
-            return _NewtonALFunction.apply(self, xu, x0, lam, rho, Q, q)
-        return self._forward(xu, x0, lam, rho, Q, q)
+            return _NewtonALFunction.apply(self, xu, x0, lam, rho, Q, q, obs)
+        return self._forward(xu, x0, lam, rho, Q, q, obs)
 
-    def _forward(self, xu, x0, lam, rho, Q, q):
+    def _forward(self, xu, x0, lam, rho, Q, q, obs=None):
         # The solver runs in full f32 on the card: the counterpart of the
         # JAX package's default_matmul_precision("highest") scope
         # (`newton_al.py:149-156`). The flags are process-wide in PyTorch,
@@ -165,16 +171,16 @@ class NewtonAL:
         torch.backends.cudnn.allow_tf32 = False
         cfg = self.cfg
         bsz = xu.shape[0]
-        merit = self._merit(xu, Q, q, x0, lam, rho)
-        dres_old = self._dyn_res_norm(xu, x0)
+        merit = self._merit(xu, Q, q, x0, lam, rho, obs)
+        dres_old = self._dyn_res_norm(xu, x0, obs)
         status = torch.ones((bsz,), dtype=torch.bool, device=xu.device)
         for _ in range(cfg.max_newton_steps):
-            g, D, O, _, _ = self._assemble(xu, Q, q, x0, lam, rho)
+            g, D, O, _, _ = self._assemble(xu, Q, q, x0, lam, rho, obs)
             update = self._solve_newton_system(g, D, O)
             self.steps += 1
-            xu, merit, stepsz = self._line_search(xu, update, merit, Q, q, x0, lam, rho)
+            xu, merit, stepsz = self._line_search(xu, update, merit, Q, q, x0, lam, rho, obs)
             status = status & torch.isfinite(xu.reshape(bsz, -1)).all(dim=-1)
-            dres_new = self._dyn_res_norm(xu, x0)
+            dres_new = self._dyn_res_norm(xu, x0, obs)
             # global stall / convergence rule (`al_utils.py:558-564`)
             done = ((torch.abs(dres_old - dres_new) / (dres_new + 1e-30) < cfg.dyn_res_tol)
                     | (dres_new < cfg.dyn_res_tol))
@@ -201,13 +207,14 @@ def implicit_grads(D, O, xu_out, g_out):
 
 class _NewtonALFunction(torch.autograd.Function):
     """NewtonAL with the JAX package's implicit VJP: only Q and q get
-    gradients."""
+    gradients. The backward's (D, O) hold the same obstacle rows as the
+    forward's."""
 
     @staticmethod
-    def forward(ctx, newton, xu, x0, lam, rho, Q, q):
-        xu_out, status = newton._forward(xu, x0, lam, rho, Q, q)
+    def forward(ctx, newton, xu, x0, lam, rho, Q, q, obs):
+        xu_out, status = newton._forward(xu, x0, lam, rho, Q, q, obs)
         # Hessian blocks at the solution, for the backward
-        _, D, O, _, _ = newton._assemble(xu_out, Q, q, x0, lam, rho)
+        _, D, O, _, _ = newton._assemble(xu_out, Q, q, x0, lam, rho, obs)
         ctx.newton = newton
         ctx.zero_cots = [(t.shape, t.dtype, t.device) for t in (xu, x0, lam, rho)]
         ctx.save_for_backward(D, O, xu_out)
@@ -227,4 +234,4 @@ class _NewtonALFunction(torch.autograd.Function):
                  for (shape, dtype, device), need in zip(ctx.zero_cots,
                                                          ctx.needs_input_grad[1:5])]
         return (None, *zeros, dQ if ctx.needs_input_grad[5] else None,
-                dq if ctx.needs_input_grad[6] else None)
+                dq if ctx.needs_input_grad[6] else None, None)

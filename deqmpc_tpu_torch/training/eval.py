@@ -11,12 +11,21 @@ ticks (`tick_s_warm_median`). `--ckpt` names a JAX
 package checkpoint (`checkpoints/rexquad_deqmpc`,
 `checkpoints/pendulum_deqmpc`) or a port checkpoint written by
 `training/train.py --save`. `final_dist_sem` is the standard error of the
-mean final distance over episodes.
+mean final distance over episodes. The final-state error wraps every
+angle dim of the env (`utils.angle_idxs_for_env`), and success is judged
+on the env's position-like dims, both as in JAX. For an env with
+obstacles the CLI gives the policy the field (`train.build_obstacles`)
+and the JSON adds `collision_rate`, the share of episodes that entered a
+sphere at some tick.
 
 CLI (`--ep_len` defaults to the env's `_max_episode_steps`: 100 ticks for
-RexQuadrotor, 200 for the pendulum, as the JAX eval runs them):
+RexQuadrotor and FlyingCartpole, 200 for the pendulum and the cartpole, as
+the JAX eval runs them; the FlyingCartpole rows of `PARITY.md` were taken
+at `--ep_len 360`):
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/rexquad_deqmpc \
       --episodes 100 [--device cpu] [--out result.json]
+  python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/flying_deqmpc_nn \
+      --episodes 100 --ep_len 360
 """
 from __future__ import annotations
 
@@ -32,23 +41,33 @@ import torch
 from .. import resolve_device
 from ..envs import make_env
 from ..policies import build_policy
+from ..utils import angle_idxs_for_env
 from ..utils.checkpoint import load_checkpoint
+from .train import build_obstacles
 
 
-def final_state_errors(x_final: np.ndarray, targ: np.ndarray, env_name: str) -> np.ndarray:
-    """Per-dim final-state error, the pendulum angle wrapped to [-pi, pi]."""
+def final_state_errors(x_final: np.ndarray, targ: np.ndarray, env_name: str,
+                       nx: Optional[int] = None) -> np.ndarray:
+    """Per-dim final-state error, the env's angle dims wrapped to [-pi, pi]
+    (`eval.py:21-32`)."""
     err = np.asarray(x_final) - np.asarray(targ)
-    if env_name.startswith("pendulum"):
-        err[:, 0] = np.mod(err[:, 0] + np.pi, 2 * np.pi) - np.pi
+    idxs = angle_idxs_for_env(env_name, err.shape[-1] if nx is None else nx)
+    for i in (idxs if idxs is not None else ()):
+        err[:, i] = np.mod(err[:, i] + np.pi, 2 * np.pi) - np.pi
     return err
 
 
 def success_dims_for_env(env_name: str, nx: int, nq: int):
-    """State dims entering the success norm: position-like ones only."""
+    """State dims entering the success norm: position-like ones only
+    (`eval.py:35-47`)."""
     if env_name.startswith("pendulum"):
-        return [0]
+        return [0]                      # pole angle
+    if "cartpole" in env_name and "Flying" not in env_name:
+        return list(range(nq))          # cart position and joint angles
     if env_name == "rexquadrotor":
-        return [0, 1, 2]
+        return [0, 1, 2]                # world position
+    if "FlyingCartpole" in env_name:
+        return [0, 1, 2, 6]             # quad position and pole angle
     return list(range(min(nq, nx)))
 
 
@@ -80,13 +99,17 @@ def eval_policy(args: Dict, env, policy, n_episodes: int = 32,
     xs = np.stack(xs, axis=1)
     rewards = np.stack(rewards, axis=1)
     env_name = args.get("env", "")
-    err = final_state_errors(xs[:, -1], env.targ_pos, env_name)
+    err = final_state_errors(xs[:, -1], env.targ_pos, env_name, env.nx)
     final_dist = np.linalg.norm(err, axis=-1)
     finite = final_dist[np.isfinite(final_dist)]
     sem = float(np.std(finite, ddof=1) / np.sqrt(finite.size)) if finite.size > 1 else float("nan")
     nq = min(getattr(env, "nq", env.nx // 2), env.nx)
     dims = success_dims_for_env(env_name, env.nx, nq)
     success = np.linalg.norm(err[:, dims], axis=-1) < 0.25
+    collision = {}
+    if getattr(env, "obstacles", False):
+        hit = env.check_collisions(torch.as_tensor(xs)).any(dim=1)
+        collision["collision_rate"] = float(hit.double().mean())
     return {
         "mean_reward": float(np.nanmean(rewards)),
         "final_dist_mean": float(np.nanmean(final_dist)),
@@ -98,6 +121,7 @@ def eval_policy(args: Dict, env, policy, n_episodes: int = 32,
         "warm_start": warm_start,
         "tick_s_cold": tick_s[0],
         "tick_s_warm_median": float(np.median(tick_s[1:])) if warm_start and ep_len > 1 else None,
+        **collision,
     }
 
 
@@ -121,7 +145,7 @@ def main(argv=None) -> Dict:
     device = resolve_device(a.device)
     state, args = load_checkpoint(a.ckpt, device)
     env = make_env(args["env"])
-    policy = build_policy(args, env, device)
+    policy = build_policy(args, env, device, obstacles=build_obstacles(env))
     policy.model.load_state_dict(state)
     t0 = time.perf_counter()
     res = eval_policy(args, env, policy, n_episodes=a.episodes, ep_len=a.ep_len,

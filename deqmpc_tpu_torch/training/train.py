@@ -2,8 +2,10 @@
 
 Port of `preprocess_batch`, `make_train_step`,
 `make_streaming_train_step`, `validate_policy` and the train CLI
-(`deqmpc_tpu/training/train.py:40-190,262-398,404,492-700`) for the
-deq-mpc-deq model (configs #1, #4 and #5 of `configs/run.sh`). One step:
+(`deqmpc_tpu/training/train.py:40-190,247-260,262-398,404,492-700`) for
+the deq-mpc-deq and deq-mpc-nn models (configs #1-#5 of `configs/run.sh`;
+the obstacle env of #3b gets the solver's sphere rows from
+`build_obstacles`). One step:
 the cold-start policy forward (N rounds of network -> AL solve), the
 per-round loss, `backward()` (the phantom gradient through the DEQ cell,
 the implicit backward of each round's last Newton solve), a clip of the
@@ -22,6 +24,10 @@ update as `optax.adam` (b1 0.9, b2 0.999, eps 1e-8).
       [--save --name pendulum_port --models_dir ./model] [--device cpu]
   python -m deqmpc_tpu_torch.training.train --env rexquadrotor --nq 6 ... \\
       --load --models_dir checkpoints --ckpt rexquad_deqmpc
+  python -m deqmpc_tpu_torch.training.train --env cartpole1link --T 10 --nq 2 --teacher sac ... \\
+      --load --models_dir checkpoints --ckpt cartpole_sac_deqmpc
+  python -m deqmpc_tpu_torch.training.train --env FlyingCartpole --model_type deq-mpc-nn \\
+      --nq 7 ... --load --models_dir checkpoints --ckpt flying_deqmpc_nn
   python -m deqmpc_tpu_torch.training.train --env rexquadrotor --nq 6 ... \\
       --streaming --streaming_steps 2 --load --models_dir checkpoints --ckpt rexquad_streaming
   python -m deqmpc_tpu_torch.training.train ... --load --ckpt X --eval \\
@@ -50,6 +56,7 @@ from .. import utils
 from ..data import get_gt_data, merge_gt_data, sample_trajectory
 from ..envs import make_env
 from ..policies import build_policy, compute_loss_deqmpc
+from ..solvers import ObstacleSet
 from ..utils.checkpoint import (is_port_checkpoint, load_checkpoint, read_port_checkpoint,
                                 save_checkpoint)
 
@@ -84,6 +91,15 @@ def split_episodes(gt_trajs: List):
     n_train = round(len(gt_trajs) * 0.9)
     val_trajs = gt_trajs[round(-len(gt_trajs) * 0.1):]
     return merge_gt_data(gt_trajs, num_trajs=n_train), merge_gt_data(val_trajs)
+
+
+def build_obstacles(env) -> Optional[ObstacleSet]:
+    """The env's obstacle field as the solver takes it (`train.py:247-260`),
+    centers (N, 3) in f64 on the CPU; None for an env without obstacles."""
+    if not getattr(env, "obstacles", False):
+        return None
+    return ObstacleSet(torch.as_tensor(env.obstacle_positions, dtype=torch.float64),
+                       float(env.obstacle_radius))
 
 
 def to_device(batch: Dict[str, np.ndarray], device, dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -193,7 +209,8 @@ def validate_policy(policy, val_samples: List[Dict[str, torch.Tensor]],
 
 # -- CLI ------------------------------------------------------------------------
 
-# the JAX CLI's model types; all but deq-mpc-deq raise NotImplementedError
+# the JAX CLI's model types; all but deq-mpc-deq and deq-mpc-nn raise
+# NotImplementedError
 MODEL_TYPES = ["deq-mpc-deq", "deq", "nn", "diff-mpc-deq", "diff-mpc-nn", "deq-mpc-nn"]
 
 
@@ -216,6 +233,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--models_dir", type=str, default="./model")
     p.add_argument("--load", action="store_true")
     p.add_argument("--ckpt", type=str, default=None)
+    p.add_argument("--teacher", type=str, default="mpc",
+                   help="the expert data: data/expert_traj_<teacher>-<spec id>_new.pkl")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--streaming", action="store_true")
     p.add_argument("--streaming_steps", type=int, default=3)
@@ -234,12 +253,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     args, rest = build_argparser().parse_known_args(argv)
     if rest:
         raise NotImplementedError(f"flags not ported yet: {' '.join(rest)}")
-    if args.model_type != "deq-mpc-deq":
+    if args.model_type not in ("deq-mpc-deq", "deq-mpc-nn"):
         raise NotImplementedError(f"model_type={args.model_type!r} is not ported yet")
-    # the deq-mpc-deq preset (`train.py:108-139`) and the JAX CLI's
-    # defaults of the flags the port does not take
+    # the deq-mpc-deq and deq-mpc-nn presets (`train.py:167-188`) and the
+    # JAX CLI's defaults of the flags the port does not take
     vars(args).update(
-        deq=True, qp_solve=True, lastqp_solve=False, dtype="float32", rho_max=None,
+        deq=True, qp_solve=True, lastqp_solve=False,
+        deq_type="nn" if args.model_type == "deq-mpc-nn" else "deq",
+        dtype="float32", rho_max=None,
         layer_type="gcn", kernel_width=3, m=5, max_steps=10, deq_reg=0.1, loss_type="l1",
         policy_out_type=1, deq_out_type=1, fp_type="anderson", grad_type="fp_grad",
         rho_init_max=1e4)
@@ -267,7 +288,7 @@ def main(argv=None) -> Dict:
     if args.nq <= 0:
         args.nq = env.nq if env.nq <= env.nx // 2 else env.nx // 2
     total_deq_iter = streaming_schedule(args)
-    policy = build_policy(vars(args), env, device).init(args.seed)
+    policy = build_policy(vars(args), env, device, obstacles=build_obstacles(env)).init(args.seed)
     optimizer = make_optimizer(policy, args.lr)
     if args.load and args.ckpt:
         path = os.path.join(args.models_dir, args.ckpt)
@@ -284,7 +305,7 @@ def main(argv=None) -> Dict:
                             warm_start={"auto": None, "on": True, "off": False}[args.eval_warm_start])
         print(json.dumps(stats), flush=True)
         return stats
-    gt, val_gt = split_episodes(get_gt_data(env))
+    gt, val_gt = split_episodes(get_gt_data(env, args.teacher))
     rng = np.random.default_rng(args.seed)
     # windows of a one-step history (H = 1): the policy sees the current
     # state; a streaming step reads T + L states

@@ -147,3 +147,65 @@ def test_streaming_step_on_card_matches_cpu():
     for k, g in grads["cpu"].items():
         torch.testing.assert_close(grads["cuda"][k], g, rtol=1e-5,
                                    atol=1e-5 * float(g.abs().max()), msg=k)
+
+
+# -- configs #2 and #3b: the cartpole (T 10) and the flying cartpole with obstacle rows --
+
+NEW_CASES = {"cartpole": ("cartpole1link", 10, 2, "deq"),
+             "flying_obstacles": ("flyingcartpole_obstacles", 5, 7, "nn")}
+
+
+def _new_pair(case, seed=0):
+    """The same f64 policy (hdim 32, N 2) on the card and on the CPU; the
+    flying cartpole's carries the rows of its obstacle field."""
+    env_name, T, nq, deq_type = NEW_CASES[case]
+    env = make_env(env_name)
+    cfg = PolicyConfig(nx=env.nx, nu=env.nu, nq=nq, T=T, dt=env.dt, hdim=32, deq_iter=2,
+                       rho_max=1e5, deq_type=deq_type, solver_dtype=torch.float64)
+    pols = {}
+    for dev in ("cuda", "cpu"):
+        pols[dev] = DEQMPCPolicy(cfg, env, device=dev,
+                                 obstacles=train.build_obstacles(env)).init(seed)
+        pols[dev].model.double()
+    obs = env.reset(torch.Generator().manual_seed(3), 8, device="cpu", dtype=torch.float64)
+    if case == "flying_obstacles":  # start beside spheres: their rows are active
+        obs[:, :3] = torch.as_tensor(env.obstacle_positions[:8]) + 0.1
+    return env, pols, obs
+
+
+@pytest.mark.parametrize("case", sorted(NEW_CASES))
+def test_new_config_tick_on_card_matches_cpu(case):
+    env, pols, obs = _new_pair(case)
+    u = {}
+    for dev, pol in pols.items():
+        launches = dict(bt.block_tridiag_solve.launches_by_kernel)
+        with torch.inference_mode():
+            out = pol.forward(obs.to(dev))
+        u[dev] = out["trajs"][-1][2].cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            by_kernel = bt.block_tridiag_solve.launches_by_kernel
+            assert by_kernel["warp"] > launches["warp"] and by_kernel["block"] == launches["block"]
+    torch.testing.assert_close(u["cuda"], u["cpu"], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(NEW_CASES))
+def test_new_config_train_step_on_card_matches_cpu(case):
+    env, pols, obs = _new_pair(case, seed=1)
+    rng = np.random.default_rng(1)
+    T = pols["cpu"].T
+    state = obs.numpy()[:, None] + 0.05 * rng.normal(size=(8, T, env.nx))
+    batch = {"obs": obs.numpy()[:, None], "state": state,
+             "action": 0.1 * rng.normal(size=(8, T, env.nu)), "mask": np.ones((8, T))}
+    grads, losses = {}, {}
+    for dev, pol in pols.items():
+        d = train.loss_fn(pol, train.to_device(batch, dev, torch.float64))
+        d["loss"].backward()
+        assert pol.backward_solves == 2  # one per round
+        losses[dev] = float(d["loss"])
+        grads[dev] = {k: p.grad.cpu() for k, p in pol.model.named_parameters() if p.grad is not None}
+    assert np.isclose(losses["cuda"], losses["cpu"], rtol=1e-6, atol=0)
+    assert set(grads["cuda"]) == set(grads["cpu"])
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k], g, rtol=1e-5,
+                                   atol=1e-5 * float(g.abs().max()), msg=k)
