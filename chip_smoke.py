@@ -87,10 +87,27 @@ Phases, each announced on a line of its own with the seconds since start:
      data) and config #3 (from `flying_deqmpc_nn`) as config #4: step 0
      card vs CPU (f32 loss; f64 loss and gradient norm; the planted sign
      flip rejected), 3 steps at bsz 128 on one seeded batch, all warp, one
-     implicit backward per round, one profiled step.
-Phases 1-3 run first, alone. Phases 4-10 and 12-16 then run in the
-worker processes of LANES, three at once, each lane's phases in turn
-(each keeps the card idle over 95% of its time, so the three share it);
+     implicit backward per round, one profiled step;
+ 17-18. serve the diff-mpc arms `checkpoints/pendulum_diffmpc_deq` (n = 3)
+     and `checkpoints/flying_diffmpc_deq` (n = 18), as phases 12-14: one
+     network call and a final AL solve of 10 iterations a tick; besides O
+     transposed (f32), a planted final solve of 2 AL iterations that the
+     f64 tick-0 check must reject;
+ 19. train the diff arm of config #3 from `flying_diffmpc_deq` as config
+     #3: one implicit backward a step (the final solve's);
+ 20. serve `checkpoints/pendulum_deqmpc` with the interior-point solve
+     (`solver_type="ip"`) as phases 12-14: no block-tridiagonal solve, the
+     dense KKT solves per tick counted, the tick-0 check on the last round's
+     whole plan, a planted fault (the SQP line search's step fixed at 1:
+     on this path it is 0.2^9 on every sample, as in JAX) that the f64
+     check must reject;
+ 21. train config #1 with the interior-point solve from a seeded fresh
+     policy: step 0 card vs CPU in f64 through the qp_layer backward (its
+     pull-back with the sign flipped must fail), 3 steps, one qp_layer
+     backward a round.
+Phases 1-3 run first, alone. Phases 4-10 and 12-21 then run in the
+worker processes of LANES, four at once, each lane's phases in turn
+(each keeps the card idle over 95% of its time, so they share it);
 their times are taken under that sharing. Phase 11 runs last, alone.
 Before the end, one `[chip_smoke] report {...}` line holds every number
 measured. The last three lines are the nvidia-smi line, the kernels JSON
@@ -102,7 +119,9 @@ runs the build, the kernel checks and the named phases only (for
 debugging; it prints neither the kernels line nor the ok line). Phase
 names: serve_rexquad, train_rexquad, train_pendulum, serve_pendulum,
 serve_streaming, train_streaming, bench_streaming, serve_cartpole,
-serve_flying, serve_flying_obstacles, train_cartpole, train_flying.
+serve_flying, serve_flying_obstacles, train_cartpole, train_flying,
+serve_pendulum_diffmpc, serve_flying_diffmpc, train_diffmpc, serve_ip,
+train_ip.
 """
 import argparse
 import concurrent.futures
@@ -124,6 +143,9 @@ STREAMING_CKPT = "checkpoints/rexquad_streaming"
 CARTPOLE_CKPT = "checkpoints/cartpole_sac_deqmpc"  # config #2
 FLYING_CKPT = "checkpoints/flying_deqmpc_nn"  # config #3
 FLYING_OBS_CKPT = "checkpoints/flying_obstacles"  # config #3b
+# the diff-mpc arms: one network call, then a final AL solve of 10 iterations
+PENDULUM_DIFF_CKPT = "checkpoints/pendulum_diffmpc_deq"
+FLYING_DIFF_CKPT = "checkpoints/flying_diffmpc_deq"  # config #3's diff arm
 EPISODES, TICKS = 32, 10
 PENDULUM_EPISODES, PENDULUM_TICKS = 32, 20
 TRAIN_BSZ, TRAIN_STEPS, PENDULUM_TRAIN_STEPS = 128, 3, 5
@@ -153,6 +175,7 @@ TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
                 ((1024, 5, 16), torch.float32), ((128, 5, 3), torch.float32),
                 ((64, 20, 18), torch.float64), ((1, 5, 16), torch.float32),
                 ((BENCH_FLEET, 5, 16), torch.float32),
+                (PENDULUM_SERVE_SHAPE, torch.float32),
                 *[(shape, torch.float32) for shape in NEW_SHAPES]]
 # H100 SXM, NVIDIA data sheet: HBM rate; f32 outside the tensor cores,
 # f64 through the tensor cores (DMMA), the fastest each type can run
@@ -248,8 +271,12 @@ def device_ms(fn, key, iters=50):
     count = sum(e.count for e in events)
     total_us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
                    for e in events)
-    check(count > 0 and total_us > 0,
-          f"the profiler shows {count} launches of {key} and {total_us} us for {iters} calls")
+    if count == 0 or total_us <= 0:
+        # some machines' CUPTI records no device event; the CUDA-event
+        # times stand, the device times are "not measured"
+        print(f"[chip_smoke]   the profiler recorded {count} launches of {key} and {total_us} us "
+              f"in {iters} calls: device time not measured", flush=True)
+        return None
     return total_us / 1e3 / count
 
 
@@ -290,8 +317,10 @@ def time_solve(bt, tridiag, bsz, T, n, dtype):
         row.setdefault(f"{kernel}_ms", []).append(ms)
         row.setdefault(f"{kernel}_device_ms", []).append(dev)
     for key in ("warp_ms", "warp_device_ms", "block_ms", "block_device_ms"):
-        row[key] = min(row[key])
-    row["speedup_device"] = row["block_device_ms"] / row["warp_device_ms"]
+        measured = [v for v in row[key] if v is not None]
+        row[key] = min(measured) if measured else None
+    row["speedup_device"] = (row["block_device_ms"] / row["warp_device_ms"]
+                             if row["block_device_ms"] and row["warp_device_ms"] else None)
     return row
 
 
@@ -321,17 +350,20 @@ def reset_counts(bt):
 
 def path_counts(bt, policy, before):
     """Launches by kernel, Newton steps, retries and backward solves since
-    `before` (a dict of the policy's counts taken at the start)."""
+    `before` (a dict of the policy's counts taken at the start), and the
+    interior-point path's dense KKT solves (forward and backward)."""
+    now = policy_counts(policy)
     return {"launches": bt.block_tridiag_solve.launches,
             "launches_by_kernel": dict(bt.block_tridiag_solve.launches_by_kernel),
-            "newton_steps": policy.newton_steps - before["newton_steps"],
-            "retries": policy.newton_retries - before["retries"],
-            "backward_solves": policy.backward_solves - before["backward_solves"]}
+            **{k: now[k] - before[k] for k in now}}
 
 
 def policy_counts(policy):
+    from deqmpc_tpu_torch.solvers import pdipm
+
     return {"newton_steps": policy.newton_steps, "retries": policy.newton_retries,
-            "backward_solves": policy.backward_solves}
+            "backward_solves": policy.backward_solves,
+            "ip_kkt_solves": pdipm.counts["kkt"], "ip_backward_solves": pdipm.counts["backward"]}
 
 
 def check_all_warp(counts, what):
@@ -362,22 +394,53 @@ def profiled(bt, fn):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(dev_us(e) for e in kernels)
     solve = [e for e in kernels if bt.KERNEL_FUNCTIONS["warp"] in e.key]
+    # the dense factorizations and solves of torch.linalg (the interior-point
+    # path's KKT systems): cuSOLVER/cuBLAS/MAGMA kernels by name
+    dense = [e for e in kernels if re.search(r"getrf|getf2|getrs|laswp|pivinfo|displace_pointers|"
+                                             r"potrf|potrs|trsm|trsv|magma|cusolver|solve",
+                                             e.key, re.I)
+             and not any(k in e.key for k in bt.KERNEL_FUNCTIONS.values())]
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    if not kernels or busy_us <= 0:  # no device event recorded: not measured
+        return {"wall_s": wall, "device_busy_ms": None, "device_idle_share": None}
     return {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernel_launches": sum(e.count for e in kernels),
             "warp_kernel_launches": sum(e.count for e in solve),
-            "warp_kernel_device_ms": sum(dev_us(e) for e in solve) / 1e3}
+            "warp_kernel_device_ms": sum(dev_us(e) for e in solve) / 1e3,
+            "dense_linalg_launches": sum(e.count for e in dense),
+            "dense_linalg_device_ms": sum(dev_us(e) for e in dense) / 1e3,
+            "top_kernels": [[e.key[:70], e.count, dev_us(e) / 1e3] for e in top]}
+
+
+def flip_newton_backward(newton_al):
+    """The planted fault of a training step: the implicit backward's
+    gradients into Q and q with their signs flipped. Returns the undo."""
+    good = newton_al.implicit_grads
+    newton_al.implicit_grads = lambda *a: (lambda dQ, dq, z: (-dQ, -dq, z))(*good(*a))
+    return lambda: setattr(newton_al, "implicit_grads", good)
+
+
+def flip_qp_layer_backward(pdipm):
+    """The interior-point path's planted fault: the qp_layer backward pulls
+    back w in place of -w. Returns the undo."""
+    good = pdipm._pull_back
+    pdipm._pull_back = lambda v, sol: good(-v, sol)
+    return lambda: setattr(pdipm, "_pull_back", good)
 
 
 def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env, batch_np,
-                 loss=None, sensitivity=True):
+                 loss=None, sensitivity=True, plant=None):
     """A training step of a checkpoint's configuration (#4, #2 or #3; #5
-    with the streaming `loss`): step 0 on the card against the CPU, in f32
+    with the streaming `loss`; the diff-mpc arm; #1 with the interior-point
+    solve from a fresh `state`): step 0 on the card against the CPU, in f32
     (the trained configuration) and f64 (tight), with `sensitivity` each
     beside the card's own move under a perturbation of the start states;
-    then TRAIN_STEPS steps on the card (the main path) and one profiled
-    step."""
+    the f64 step 0 with the planted fault `plant` (default: the implicit
+    NewtonAL backward's signs flipped); then TRAIN_STEPS steps on the card
+    (the main path) and one profiled step."""
     loss = loss or train.loss_fn
+    plant = plant or (lambda: flip_newton_backward(newton_al))
 
     def fresh(dev, dtype=torch.float32):
         p = build_policy(args, env, dev)
@@ -409,14 +472,12 @@ def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, 
         out["card_step0_f64_moved_1e-12"] = step0("cuda", torch.float64, 1e-12)
         out["step0_gap_sensitivity_f64_1e-12"] = gaps(out["card_step0_f64_moved_1e-12"],
                                                       out["card_step0_f64"])
-    # a planted fault the f64 check should see: the implicit backward's
-    # gradients into Q and q with their signs flipped
-    good = newton_al.implicit_grads
-    newton_al.implicit_grads = lambda *a: (lambda dQ, dq, z: (-dQ, -dq, z))(*good(*a))
+    # a planted fault the f64 check should see
+    undo = plant()
     try:
         out["card_step0_f64_planted_sign_flip"] = step0("cuda", torch.float64)
     finally:
-        newton_al.implicit_grads = good
+        undo()
     out["step0_gap_planted_sign_flip_f64"] = gaps(out["card_step0_f64_planted_sign_flip"],
                                                   out["cpu_step0_f64"])
 
@@ -440,6 +501,7 @@ def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, 
                                              for k in bt.KERNELS}})
     out["counts"] = path_counts(bt, policy, before)
     out["deq_iter"] = policy.cfg.deq_iter
+    out["mode"] = {k: getattr(policy.cfg, k) for k in ("qp_solve", "lastqp_solve", "solver_type")}
     out["backward_zeroed_share"] = policy.backward_zeroed_share()
     out["steps"] = steps
     out["card_step0"] = {k: steps[0][k] for k in ("loss", "grad_norm")}
@@ -457,26 +519,43 @@ def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, 
     return out
 
 
-def check_train(tr, what, forwards=1):
+def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64),
+                planted_check=True):
     """The checks of a training phase: finite steps, one implicit backward
-    per round of each forward, every solve through the warp kernel, step 0
-    card vs CPU within STEP0_RTOL, the planted sign flip rejected."""
+    per round of each forward (for a diff-mpc step, the final solve's one;
+    for the interior-point path, one qp_layer backward a round and no
+    block-tridiagonal solve), every solve through the warp kernel, step 0
+    card vs CPU within STEP0_RTOL in `dtypes`, the planted fault rejected."""
+    mode = tr["mode"]
+    ip = mode["solver_type"] == "ip"
+    # backward solves a step: one a round with a solve in every round, one
+    # for a final solve
+    backward = 0 if ip else (tr["deq_iter"] * forwards if mode["qp_solve"] else
+                             int(mode["lastqp_solve"]))
     for i, s_ in enumerate(tr["steps"]):
         check(np.isfinite(s_["loss"]) and np.isfinite(s_["grad_norm"]),
               f"{what} step {i}: loss {s_['loss']}, grad norm {s_['grad_norm']}")
-        check(s_["backward_solves"] == tr["deq_iter"] * forwards
+        check(s_["backward_solves"] == backward
               and s_["launches_by_kernel"]["warp"] == s_["newton_steps"] + s_["retries"]
               + s_["backward_solves"] and s_["launches_by_kernel"]["block"] == 0,
               f"{what} step {i}: solves and launches disagree: {s_}")
-    check_all_warp(tr["counts"], what)
-    check(tr["counts"]["backward_solves"] == TRAIN_STEPS * tr["deq_iter"] * forwards,
+        if ip:
+            check(s_["ip_backward_solves"] == tr["deq_iter"] and s_["ip_kkt_solves"] > 0,
+                  f"{what} step {i}: interior-point solves {s_}")
+    if ip:
+        check(tr["counts"]["launches"] == 0, f"{what}: block-tridiagonal launches on the IP path")
+    else:
+        check_all_warp(tr["counts"], what)
+    check(tr["counts"]["backward_solves"] == TRAIN_STEPS * backward,
           f"{what}: {tr['counts']['backward_solves']} backward solves in {TRAIN_STEPS} steps")
     for dtype, key in ((torch.float32, "step0_gap_card_vs_cpu"),
                        (torch.float64, "step0_gap_card_vs_cpu_f64")):
+        if dtype not in dtypes:
+            continue
         for k, lim in STEP0_RTOL[dtype].items():
             check(tr[key][k] <= lim,
                   f"{what} step 0 {k} ({dtype}), card vs CPU: relative gap {tr[key][k]} > {lim}")
-    check(tr["step0_gap_planted_sign_flip_f64"]["grad_norm"]
+    check(not planted_check or tr["step0_gap_planted_sign_flip_f64"]["grad_norm"]
           > STEP0_RTOL[torch.float64]["grad_norm"],
           f"{what}: the f64 step-0 check passed a planted fault: "
           f"{tr['step0_gap_planted_sign_flip_f64']}")
@@ -667,18 +746,56 @@ def active_share(rows):
     return {"solves_x_samples": float(a.mean()), "samples": float(a.amax(dim=0).mean())}
 
 
-def serve_config(ckpt, bt, tridiag, newton_al, m):
-    """A checkpoint of configs #2, #3 or #3b, served: tick 0 of NEW_EPISODES
-    start states on the card against the same forward on the CPU, f32 and
-    f64, with the jittered retries of both and a planted fault (O
-    transposed) in the card's f32 forward; every Newton system of the
-    card's f32 tick 0 against the plain solve; then NEW_EPISODES x
-    NEW_TICKS closed-loop ticks through `eval_policy` with the counts set
-    to 0 just before, per tick its Newton steps and retries, and one more
-    tick under the profiler. With obstacles, the first OBSTACLE_STARTS
-    tick-0 states start beside a sphere, and the share of samples with an
-    active obstacle row is recorded at tick 0 and in the closed loop."""
+def short_final_solve(tracking_mpc):
+    """The planted fault of a diff-mpc forward: its final solve cut to 2 AL
+    iterations (10 in the policy). Returns the undo."""
+    cls = type(tracking_mpc)
+
+    class Short(cls):
+        def __call__(self, *a, al_iters=2, **kw):
+            return super().__call__(*a, al_iters=min(al_iters, 2), **kw)
+
+    tracking_mpc.__class__ = Short
+    return lambda: setattr(tracking_mpc, "__class__", cls)
+
+
+def ip_full_step(tracking_mpc):
+    """The interior-point path's planted fault: the SQP line search always
+    takes the full QP step. On this path (as in JAX) it takes the smallest
+    step, 0.2^9, on every sample: the tracking cost is least at the
+    reference it starts from, so no step lowers it, and a fault inside the
+    QP moves the plan by 5e-7 of its size (the QP's dynamics without their
+    control columns moved the f64 plan by a median of 1.2e-6). Returns the
+    undo."""
+    ip = tracking_mpc.ip_ctrl
+    good = ip._line_search
+
+    def full_step(xc, uc, x_new, u_new, x0, cost):
+        x, u, alpha, c = good(xc, uc, x_new, u_new, x0, cost)
+        return x, u, torch.ones_like(alpha), c
+
+    ip._line_search = full_step
+    return lambda: ip.__dict__.pop("_line_search", None)
+
+
+def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None):
+    """A checkpoint of configs #2, #3 or #3b, of the diff-mpc arms, or
+    `pendulum_deqmpc` with the interior-point solve (`args_update`), served:
+    tick 0 of NEW_EPISODES start states on the card against the same
+    forward on the CPU, f32 and f64, with the jittered retries of both and
+    the planted faults (f32: O transposed in the solve, with the AL solve;
+    f64: the final solve cut to 2 AL iterations, with a final solve; f64:
+    the SQP line search's step fixed at 1, with the interior-point solve);
+    every Newton
+    system of the card's f32 tick 0 against the plain solve; then
+    NEW_EPISODES x NEW_TICKS closed-loop ticks through `eval_policy` with
+    the counts set to 0 just before, per tick its Newton steps and retries
+    (and dense interior-point solves), and one more tick under the
+    profiler. With obstacles, the first OBSTACLE_STARTS tick-0 states start
+    beside a sphere, and the share of samples with an active obstacle row
+    is recorded at tick 0 and in the closed loop."""
     state, args = m.load_checkpoint(ckpt, "cuda")
+    args = {**args, **(args_update or {})}
     env = m.make_env(args["env"])
     obstacles = m.build_obstacles(env)
     policy = m.build_policy(args, env, "cuda", obstacles=obstacles)
@@ -687,13 +804,21 @@ def serve_config(ckpt, bt, tridiag, newton_al, m):
     if obstacles is not None:
         x0[:OBSTACLE_STARTS, :3] = torch.as_tensor(
             env.obstacle_positions[:OBSTACLE_STARTS], dtype=x0.dtype) + 0.1
-    out = {"env": args["env"], "deq_type": policy.cfg.deq_type, "T": policy.cfg.T,
+    cfg = policy.cfg
+    out = {"env": args["env"], "deq_type": cfg.deq_type, "T": cfg.T, "deq_iter": cfg.deq_iter,
+           "mode": {k: getattr(cfg, k) for k in ("qp_solve", "lastqp_solve", "solver_type")},
            "n": env.nx + env.nu, "ncon": policy.tracking_mpc.ctrl.ncon, "gaps": {},
-           "retries": {}}
+           "retries": {}, "planted": {}}
     systems = []
 
     def first_actions(p, x):
-        return p.forward(x)["trajs"][-1][2][:, 0]
+        """The first actions; with the interior-point solve the last round's
+        whole plan (states, then actions): its first actions are the QP's
+        times the line search's 0.2^9, about 1e-6."""
+        _, xs, us = p.forward(x)["trajs"][-1]
+        if cfg.solver_type == "ip":
+            return torch.cat([xs.flatten(1), us.flatten(1)], dim=1)
+        return us[:, 0]
 
     with torch.inference_mode():
         for dtype in (torch.float32, torch.float64):
@@ -724,18 +849,33 @@ def serve_config(ckpt, bt, tridiag, newton_al, m):
             print(f"[chip_smoke]   {ckpt} {dtype}: tick-0 action gap {json.dumps(g)}, retries "
                   f"{json.dumps(out['retries'][str(dtype)])}, active obstacle rows "
                   f"{json.dumps(active_share(rows))}", flush=True)
-            if dtype == torch.float32:
-                good_solve = newton_al.block_tridiag_solve
-                newton_al.block_tridiag_solve = lambda D, O, b: good_solve(
-                    D, O.mT.contiguous(), b)
+            faults = []
+            if dtype == torch.float32 and cfg.solver_type == "al":
+                def o_transposed():
+                    good_solve = newton_al.block_tridiag_solve
+                    newton_al.block_tridiag_solve = lambda D, O, b: good_solve(
+                        D, O.mT.contiguous(), b)
+                    return lambda: setattr(newton_al, "block_tridiag_solve", good_solve)
+                faults.append(("O_transposed", o_transposed))
+            if dtype == torch.float64 and cfg.lastqp_solve:
+                faults.append(("final_solve_2_al_iters",
+                               lambda: short_final_solve(pols["cuda"].tracking_mpc)))
+            if dtype == torch.float64 and cfg.solver_type == "ip":
+                faults.append(("ip_line_search_full_step",
+                               lambda: ip_full_step(pols["cuda"].tracking_mpc)))
+            for name, plant in faults:
+                undo = plant()
                 try:
                     u_bad = first_actions(pols["cuda"], x0.to("cuda", dtype))
                 finally:
-                    newton_al.block_tridiag_solve = good_solve
-                out["gaps"]["planted_fault_O_transposed"] = action_gap(u_bad, u["cpu"])
-                print(f"[chip_smoke]   planted fault: tick-0 action gap "
-                      f"{json.dumps(out['gaps']['planted_fault_O_transposed'])}", flush=True)
-    out["served_systems"] = check_served_systems(bt, tridiag, systems, torch.float32)
+                    undo()
+                out["planted"][name] = {"dtype": str(dtype), "gap": action_gap(u_bad, u["cpu"])}
+                if name == "O_transposed":
+                    out["gaps"]["planted_fault_O_transposed"] = out["planted"][name]["gap"]
+                print(f"[chip_smoke]   planted fault {name}: tick-0 action gap "
+                      f"{json.dumps(out['planted'][name]['gap'])}", flush=True)
+    if systems:
+        out["served_systems"] = check_served_systems(bt, tridiag, systems, torch.float32)
 
     rows = record_obstacle_rows(policy, m.obstacle_residuals)
     per_tick, forward = [], policy.forward
@@ -744,7 +884,7 @@ def serve_config(ckpt, bt, tridiag, newton_al, m):
         c0 = policy_counts(policy)
         res = forward(*a)
         c1 = policy_counts(policy)
-        per_tick.append({k: c1[k] - c0[k] for k in ("newton_steps", "retries")})
+        per_tick.append({k: c1[k] - c0[k] for k in ("newton_steps", "retries", "ip_kkt_solves")})
         return res
 
     policy.forward = record
@@ -755,6 +895,7 @@ def serve_config(ckpt, bt, tridiag, newton_al, m):
                         device="cuda")
     res["counts"] = path_counts(bt, policy, before)
     res["launches_per_tick"] = res["counts"]["launches"] / NEW_TICKS
+    res["ip_kkt_solves_per_tick"] = res["counts"]["ip_kkt_solves"] / NEW_TICKS
     res["per_tick"] = per_tick
     res["active_obstacle_share"] = active_share(rows)
     policy.forward = forward
@@ -766,17 +907,28 @@ def serve_config(ckpt, bt, tridiag, newton_al, m):
 
 
 def check_served(sv, ckpt):
-    """The checks of a served configuration (`serve_config`)."""
+    """The checks of a served configuration (`serve_config`): tick 0 card vs
+    CPU within ACTION_TOL, every planted fault rejected, a finite closed
+    loop, every solve through the warp kernel (with the interior-point
+    solve: no block-tridiagonal solve, dense solves every tick)."""
     for dtype in (torch.float32, torch.float64):
         check(gap_within(sv["gaps"][str(dtype)], dtype),
               f"{ckpt} tick-0 actions, card vs CPU ({dtype}): {sv['gaps'][str(dtype)]} "
               f"beyond {ACTION_TOL[dtype]}")
-    check(not gap_within(sv["gaps"]["planted_fault_O_transposed"], torch.float32),
-          f"{ckpt}: the tick-0 check passed a planted fault (O transposed)")
+    check(sv["planted"], f"{ckpt}: no planted fault")
+    for name, p in sv["planted"].items():
+        dtype = torch.float32 if p["dtype"] == str(torch.float32) else torch.float64
+        check(not gap_within(p["gap"], dtype),
+              f"{ckpt}: the tick-0 check passed a planted fault ({name}): {p['gap']}")
     cl = sv["closed_loop"]
     check(cl["n_nan_episodes"] == 0 and np.isfinite(cl["mean_reward"]),
           f"{ckpt}: non-finite states or rewards in the closed loop")
-    check_all_warp(cl["counts"], f"{ckpt} closed loop")
+    if sv["mode"]["solver_type"] == "ip":
+        check(cl["counts"]["launches"] == 0 and cl["counts"]["newton_steps"] == 0
+              and all(t["ip_kkt_solves"] > 0 for t in cl["per_tick"]),
+              f"{ckpt} closed loop with the interior-point solve: {cl['counts']}")
+    else:
+        check_all_warp(cl["counts"], f"{ckpt} closed loop")
 
 
 def action_gap(u_card, u_cpu):
@@ -1089,11 +1241,12 @@ def phase_train_streaming(c):
     return tr5, tr5["counts"]
 
 
-def phase_serve_new(ckpt):
-    """Serve config #2, #3 or #3b (`serve_config`)."""
+def phase_serve_new(ckpt, args_update=None):
+    """Serve config #2, #3 or #3b, a diff-mpc arm, or a checkpoint with
+    `args_update` (`serve_config`)."""
     def run(c):
-        phase(f"serve: {ckpt}", episodes=NEW_EPISODES, ticks=NEW_TICKS)
-        sv = serve_config(ckpt, c.bt, c.tridiag, c.newton_al, c)
+        phase(f"serve: {ckpt}", episodes=NEW_EPISODES, ticks=NEW_TICKS, **(args_update or {}))
+        sv = serve_config(ckpt, c.bt, c.tridiag, c.newton_al, c, args_update)
         cl = sv["closed_loop"]
         for row in cl["per_tick"]:
             print(f"[chip_smoke]   tick {json.dumps(row)}", flush=True)
@@ -1104,7 +1257,8 @@ def phase_serve_new(ckpt):
 
 
 def phase_train_new(ckpt, teacher):
-    """Train config #2 or #3 from its checkpoint on its teacher's data."""
+    """Train config #2 or #3, or the diff-mpc arm of #3, from its checkpoint
+    on its teacher's data."""
     def run(c):
         state, args = c.load_checkpoint(ckpt, "cuda")
         env = c.make_env(args["env"])
@@ -1120,6 +1274,89 @@ def phase_train_new(ckpt, teacher):
     return run
 
 
+# the qp_layer backward at the interior-point training path's QPs, card vs
+# CPU in f64: relative to each gradient's largest entry
+QP_LAYER_RTOL = 1e-6
+
+
+def qp_layer_on_path(policy, obs, pdipm, ip_mpc):
+    """The six input gradients of the first round's qp_layer call in the
+    policy's forward from `obs`, for a seeded cotangent, on the card and on
+    the CPU, in f64; with the pull-back's sign flipped on the card too. The
+    step's gradient cannot show the layer's backward on this path: its
+    controls sit on the box bound, and the solver path is 1.8e-6 of the
+    config-#1 gradient's norm (f64, CPU)."""
+    captured, layer = [], ip_mpc.qp_layer
+
+    def keep(*a):
+        captured.append([t.detach().double().cpu() for t in a[:6]])
+        return layer(*a)
+
+    ip_mpc.qp_layer = keep
+    try:
+        with torch.no_grad():
+            policy.forward(obs)
+    finally:
+        ip_mpc.qp_layer = layer
+    qp = captured[0]
+    gz = torch.randn(qp[1].shape, generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+
+    def grads(dev):
+        t = [a.to(dev, copy=True).requires_grad_() for a in qp]
+        z = pdipm.qp_layer(*t, 18)
+        z.backward(gz.to(dev))
+        return [a.grad.cpu() for a in t]
+
+    card, cpu = grads("cuda"), grads("cpu")
+    undo = flip_qp_layer_backward(pdipm)
+    try:
+        bad = grads("cuda")
+    finally:
+        undo()
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-300)
+                   for x, y in zip(a, b))
+
+    return {"shapes": {k: list(v.shape) for k, v in zip("Q p G h A b".split(), qp)},
+            "rel_gap_card_vs_cpu": gap(card, cpu), "rel_gap_planted_sign_flip": gap(bad, cpu),
+            "largest": {k: float(v.abs().max()) for k, v in zip("Q p G h A b".split(), cpu)}}
+
+
+def phase_train_ip(c):
+    """Config #1 with the interior-point solve, from a seeded fresh policy:
+    step 0 card vs CPU in f64, TRAIN_STEPS steps, and the qp_layer backward
+    at the path's first QP card vs CPU (a planted sign flip of its
+    pull-back rejected)."""
+    from deqmpc_tpu_torch.solvers import ip_mpc, pdipm
+
+    argv = ["--env", "pendulum", "--model_type", "deq-mpc-deq", "--T", "5", "--deq_iter", "6",
+            "--hdim", "256", "--bsz", str(TRAIN_BSZ), "--solver_type", "ip"]
+    args = vars(c.train.parse_args(argv))
+    env = c.make_env("pendulum")
+    state = c.build_policy(args, env, "cpu").init(0).model.state_dict()
+    batch_np = c.expert_batch("pendulum", env, 4, args["T"])
+    phase("train: config #1, interior-point solve", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
+    tr = train_config(c.bt, c.train, c.build_policy, c.DEQMPCPolicy, c.newton_al, state, args,
+                      env, batch_np, sensitivity=False,
+                      plant=lambda: flip_qp_layer_backward(pdipm))
+    for s_ in tr["steps"]:
+        print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+    pol = c.build_policy(args, env, "cuda")
+    pol = c.DEQMPCPolicy(dataclasses.replace(pol.cfg, solver_dtype=torch.float64), env, "cuda")
+    pol.model.load_state_dict(state)
+    pol.model.double()
+    obs = torch.as_tensor(batch_np["obs"][:, -1], dtype=torch.float64, device="cuda")
+    tr["qp_layer_on_path"] = layer = qp_layer_on_path(pol, obs, pdipm, ip_mpc)
+    phase("train: config #1, interior-point solve done",
+          **{k: v for k, v in tr.items() if k != "steps"})
+    check_train(tr, "config-#1 interior-point training", dtypes=(torch.float64,),
+                planted_check=False)
+    check(layer["rel_gap_card_vs_cpu"] <= QP_LAYER_RTOL < layer["rel_gap_planted_sign_flip"],
+          f"qp_layer backward on the interior-point path, card vs CPU: {layer}")
+    return tr, tr["counts"]
+
+
 PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rexquad,
           "train_pendulum": phase_train_pendulum, "serve_pendulum": phase_serve_pendulum,
           "serve_streaming": phase_serve_streaming, "train_streaming": phase_train_streaming,
@@ -1127,7 +1364,12 @@ PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rex
           "serve_flying": phase_serve_new(FLYING_CKPT),
           "serve_flying_obstacles": phase_serve_new(FLYING_OBS_CKPT),
           "train_cartpole": phase_train_new(CARTPOLE_CKPT, "sac"),
-          "train_flying": phase_train_new(FLYING_CKPT, "mpc")}
+          "train_flying": phase_train_new(FLYING_CKPT, "mpc"),
+          "serve_pendulum_diffmpc": phase_serve_new(PENDULUM_DIFF_CKPT),
+          "serve_flying_diffmpc": phase_serve_new(FLYING_DIFF_CKPT),
+          "train_diffmpc": phase_train_new(FLYING_DIFF_CKPT, "mpc"),
+          "serve_ip": phase_serve_new(PENDULUM_CKPT, {"solver_type": "ip"}),
+          "train_ip": phase_train_ip}
 # The phases run in LANES worker processes at once, each lane's in turn: a
 # phase keeps the card idle over 95% of its time (its host dispatches the
 # ops one by one), so three host threads share the card with little
@@ -1136,7 +1378,9 @@ PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rex
 LANES = (("serve_flying_obstacles", "train_streaming"),
          ("serve_flying", "serve_streaming", "train_rexquad"),
          ("serve_cartpole", "train_flying", "train_cartpole", "serve_rexquad", "train_pendulum",
-          "serve_pendulum"))
+          "serve_pendulum"),
+         ("serve_flying_diffmpc", "train_diffmpc", "serve_pendulum_diffmpc", "train_ip",
+          "serve_ip"))
 LANE_THREADS = 2  # torch's CPU threads per lane (the CPU references)
 
 
@@ -1222,7 +1466,7 @@ def main(argv=None) -> int:
     for row in timings:
         print(f"[chip_smoke]   timing {json.dumps(row)}", flush=True)
 
-    # -- 4-16. the paths, in LANES worker processes ------------------------------
+    # -- 4-10, 12-21. the paths, in LANES worker processes ------------------------
     lanes = [[n for n in lane if selected is None or n in selected] for lane in LANES]
     lanes = [lane for lane in lanes if lane]
     phase("paths", lanes=lanes)
@@ -1255,7 +1499,7 @@ def main(argv=None) -> int:
         phase("done", phases=selected)
         return 0
 
-    # -- 17. result ------------------------------------------------------------
+    # -- result ------------------------------------------------------------------
     main_t = timings[0]
     kernels = [{
         "name": f"block_tridiag_solve[{kernel}]", "route": "cuda",

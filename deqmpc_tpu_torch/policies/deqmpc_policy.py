@@ -19,9 +19,22 @@ tracking solve takes the streaming exit (and, with `linearize_once`, the
 linear model). With `deq_type="nn"` (deq-mpc-nn) the network is the
 feed-forward `FFDNetwork`; with an obstacle field and
 `obstacle_constraints` (the default) every tracking solve carries the
-rows of the spheres nearest to its reference. `build_policy` mirrors
-`training/train.py:191-246` for the base variant; the other variants and
-the obstacle-aware network input wait for later slices.
+rows of the spheres nearest to its reference.
+
+The loop's two switches (`deqmpc_policy.py:176-236`), defaulting to the
+config's `qp_solve` and `lastqp_solve`: without `qp_solve` a round makes
+no solve and records (x_ref, x_ref, u_ref), and the next round reads the
+network's own trajectory. With `lastqp_solve` every round's solver half
+is detached, and after the last round one more tracking solve of 10 AL
+iterations (cold, from the last round's reference and the carried AL
+state) replaces the last record and sets `status`; the carry keeps that
+solve's AL state. The model types of the train CLI set them: diff-mpc
+(`qp_solve` off, `lastqp_solve` on, one round), deq (neither, one round).
+`NNMPCPolicy` is the feed-forward network, one round (the nn model type).
+`solver_type="ip"` puts the interior-point SQP solve in every tracking
+solve. `build_policy` mirrors `training/train.py:191-246` for the base
+variant; the other variants and the obstacle-aware network input wait
+for later slices.
 """
 from __future__ import annotations
 
@@ -72,6 +85,13 @@ class PolicyConfig:
     deq_type: str = "deq"    # or "nn": the feed-forward FFDNetwork
     # gates the solver's obstacle rows when the policy is given a field
     obstacle_constraints: bool = True
+    # the loop's switches, the defaults of `forward` and `forward_warm_start`
+    qp_solve: bool = True
+    lastqp_solve: bool = False
+    solver_type: str = "al"  # or "ip": the interior-point SQP solve
+    qp_iter: int = 1
+    ip_eps: float = 1e-2
+    ip_grad_method: str = "analytic"
 
 
 class DEQMPCPolicy:
@@ -98,7 +118,9 @@ class DEQMPCPolicy:
             env, cfg.T, al_iter=cfg.al_iter, dtype=cfg.solver_dtype,
             max_newton_steps=cfg.max_newton_steps, rho_max=cfg.rho_max,
             dyn_res_tol=cfg.dyn_res_tol,
-            obstacles=obstacles if cfg.obstacle_constraints else None, device=self.device,
+            obstacles=obstacles if cfg.obstacle_constraints else None,
+            solver_type=cfg.solver_type, qp_iter=cfg.qp_iter, ip_eps=cfg.ip_eps,
+            ip_grad_method=cfg.ip_grad_method, device=self.device,
         )
 
     def init(self, seed: int) -> "DEQMPCPolicy":
@@ -132,41 +154,61 @@ class DEQMPCPolicy:
         n = self.newton_solver
         return float(n.backward_zeroed) / n.backward_samples if n.backward_samples else 0.0
 
-    def forward(self, obs) -> Dict:
+    def _mode(self, qp_solve, lastqp_solve):
+        cfg = self.cfg
+        return (cfg.qp_solve if qp_solve is None else qp_solve,
+                cfg.lastqp_solve if lastqp_solve is None else lastqp_solve)
+
+    def forward(self, obs, qp_solve: Optional[bool] = None,
+                lastqp_solve: Optional[bool] = None) -> Dict:
         """Cold-start forward (`deqmpc_policy.py:143-160`). obs (bsz, nx)
         -> {"trajs": [(x_ref, x_opt, u_opt)] * deq_iter, "status",
         "init_states", "carry"}."""
         bsz = obs.shape[0]
         x_ref = obs[:, None].expand(bsz, self.T, self.nx)
-        policy_out = self._deqmpc_iter(obs, x_ref,
+        u_ref = torch.zeros((bsz, self.T, self.nu), dtype=obs.dtype, device=obs.device)
+        policy_out = self._deqmpc_iter(obs, x_ref, u_ref,
                                        self.model.init_z(bsz, obs.dtype, obs.device),
-                                       self.tracking_mpc.init_state(bsz))
+                                       self.tracking_mpc.init_state(bsz),
+                                       *self._mode(qp_solve, lastqp_solve))
         policy_out["init_states"] = x_ref
         return policy_out
 
-    def forward_warm_start(self, obs, carry: PolicyCarry) -> Dict:
+    def forward_warm_start(self, obs, carry: PolicyCarry, qp_solve: Optional[bool] = None,
+                           lastqp_solve: Optional[bool] = None) -> Dict:
         """Streaming forward (`deqmpc_policy.py:163-173`) from the carry of
         the tick before; same outputs as `forward`."""
-        policy_out = self._deqmpc_iter(obs, carry.x, carry.z, carry.solver, warm_start=True)
+        policy_out = self._deqmpc_iter(obs, carry.x, carry.u, carry.z, carry.solver,
+                                       *self._mode(qp_solve, lastqp_solve), warm_start=True)
         policy_out["init_states"] = carry.x
         return policy_out
 
-    def _deqmpc_iter(self, obs, x_prev, z, sol_state, warm_start: bool = False) -> Dict:
+    def _deqmpc_iter(self, obs, x_prev, u_prev, z, sol_state, qp_solve: bool,
+                     lastqp_solve: bool, warm_start: bool = False) -> Dict:
         cfg = self.cfg
         trajs = []
+        status = torch.zeros((obs.shape[0],), dtype=torch.bool, device=obs.device)
         for i in range(self.deq_iter):
             out_mpc, z = self.model(obs, x_prev, z)
             x_t, x_ref, u_ref = out_mpc["x_t"], out_mpc["x_ref"], out_mpc["u_ref"]
             if warm_start and i == 0:
                 # the receding-horizon shift of the duals and iterate
                 sol_state = self.tracking_mpc.warm_start_state(sol_state, self.rho_warm_max)
-            ns, na, status, sol_state = self.tracking_mpc(
-                x_t, x_ref, u_ref, sol_state, al_iters=cfg.al_iter, streaming=warm_start,
-                linearize_once=warm_start and cfg.linearize_once)
-            x_prev = ns
-            trajs.append((x_ref, ns, na))
+            ns, na = x_ref, u_ref
+            if qp_solve:
+                ns, na, status, sol_state = self.tracking_mpc(
+                    x_t, x_ref, u_ref, sol_state, al_iters=cfg.al_iter, streaming=warm_start,
+                    linearize_once=warm_start and cfg.linearize_once)
+            # the next round reads the solver's trajectory, or without a
+            # solve the network's own
+            x_prev, u_prev = ns, na
+            trajs.append((x_ref, ns.detach(), na.detach()) if lastqp_solve else (x_ref, ns, na))
+        if lastqp_solve:
+            ns, na, status, sol_state = self.tracking_mpc(x_t, x_ref, u_ref, sol_state,
+                                                          al_iters=10)
+            trajs[-1] = (x_ref, ns, na)
         return {"trajs": trajs, "status": status,
-                "carry": self._save_carry(z, ns, na, sol_state)}
+                "carry": self._save_carry(z, x_prev, u_prev, sol_state)}
 
     @staticmethod
     def _save_carry(z, x, u, sol_state) -> PolicyCarry:
@@ -178,15 +220,26 @@ class DEQMPCPolicy:
         return PolicyCarry(z=shift(z), x=shift(x), u=shift(u), solver=sol_state)
 
 
+class NNMPCPolicy(DEQMPCPolicy):
+    """The feed-forward network, one round, with the loop's switches as
+    given (`deqmpc_policy.py:267-273`)."""
+
+    def __init__(self, cfg: PolicyConfig, env, device="cuda",
+                 obstacles: Optional[ObstacleSet] = None):
+        super().__init__(dataclasses.replace(cfg, deq_type="nn", deq_iter=1), env,
+                         device=device, obstacles=obstacles)
+
+
 def build_policy(args: Mapping[str, Any], env, device="cuda",
                  obstacles: Optional[ObstacleSet] = None) -> DEQMPCPolicy:
     """The policy a checkpoint's `args` describe (`training/train.py:191-246`,
-    the base deq-mpc variant with the deq or the nn network). `obstacles`:
-    the env's field (`training.train.build_obstacles`), or None."""
+    the base variant with the deq or the nn network, or `NNMPCPolicy` when
+    `deq` is false), with the args' `qp_solve`, `lastqp_solve` and
+    `solver_type`. `obstacles`: the env's field
+    (`training.train.build_obstacles`), or None."""
     a = dict(args)
     unsupported = {
-        "deq": (True,), "qp_solve": (True,), "lastqp_solve": (False,),
-        "solver_type": ("al",), "policy_variant": ("base",), "addmem": (False,),
+        "policy_variant": ("base",), "addmem": (False,),
         "deq_type": ("deq", "nn"), "layer_type": ("gcn",), "obstacle_net_input": (False,),
         "fp_type": ("anderson",), "deq_out_type": (1,), "grad_type": ("fp_grad",),
         "recompute_Qq": (False,), "compute_dtype": ("f32",),
@@ -212,5 +265,9 @@ def build_policy(args: Mapping[str, Any], env, device="cuda",
         loss_type=a.get("loss_type", "l1"), deq_type=a.get("deq_type", "deq"),
         # a missing key means true, as the JAX CLI's getattr default
         obstacle_constraints=a.get("obstacle_constraints", True),
+        qp_solve=a.get("qp_solve", True), lastqp_solve=a.get("lastqp_solve", False),
+        solver_type=a.get("solver_type", "al"), qp_iter=a.get("qp_iter", 1),
+        ip_eps=a.get("eps", 1e-2), ip_grad_method=a.get("ip_grad_method", "analytic"),
     )
-    return DEQMPCPolicy(cfg, env, device=device, obstacles=obstacles)
+    cls = DEQMPCPolicy if a.get("deq", True) else NNMPCPolicy
+    return cls(cfg, env, device=device, obstacles=obstacles)

@@ -3,13 +3,16 @@
 
 Port of `TrackingMPC.__init__`, `init_state`, `warm_start_state`,
 `compute_pf` and `__call__` (`deqmpc_tpu/policies/tracking_mpc.py:27-185`)
-for the AL path, cold-started or streaming: the diagonal cost
+for the AL path, cold-started or streaming, and the interior-point path
+(`solver_type="ip"`, `tracking_mpc.py:77-86,138-141`: `IPMPC` from the
+network reference, the AL state handed back unchanged and status all
+False). The diagonal cost is
 Q = diag([Qlqr, Rlqr]) per knot point, the linear term p = -Q * xu_ref and
 the constant f = 0.5 xu_ref'Q xu_ref. With `obstacles` (the field), each
 call selects the `n_obs_sel` spheres nearest to the reference's knots,
 from x_ref cast to the solver dtype, and hands them to the solve
-(`tracking_mpc.py:142-143,183`). The q-scaling, auxiliary-cost,
-interior-point and cost-refresh options wait for later slices.
+(`tracking_mpc.py:142-143,183`). The q-scaling, auxiliary-cost and
+cost-refresh options wait for later slices.
 """
 from __future__ import annotations
 
@@ -18,15 +21,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..solvers import ALMPC, ALState, ObstacleSet, QuadCost
+from ..solvers import ALMPC, IPMPC, ALState, ObstacleSet, QuadCost
 
 
 class TrackingMPC:
     def __init__(self, env, T: int, al_iter: int = 2, dtype=torch.float32,
                  max_newton_steps: int = 4, rho_max: float = 1e8,
                  dyn_res_tol: float = 1e-3, obstacles: Optional[ObstacleSet] = None,
-                 n_obs_sel: int = 4, device="cuda"):
+                 n_obs_sel: int = 4, solver_type: str = "al", qp_iter: int = 1,
+                 ip_eps: float = 1e-2, ip_grad_method: str = "analytic", device="cuda"):
+        if solver_type not in ("al", "ip"):
+            raise ValueError(f"unknown solver_type {solver_type!r}")
         self.env = env
+        self.solver_type = solver_type
         self.nx, self.nu, self.T = env.nx, env.nu, T
         self.dtype = dtype
         self.Q0 = torch.as_tensor(
@@ -44,6 +51,13 @@ class TrackingMPC:
             max_newton_steps=max_newton_steps, rho_max=rho_max,
             dyn_res_tol=dyn_res_tol, obstacles=obstacles, n_obs_sel=n_obs_sel, device=device,
         )
+        if solver_type == "ip":
+            self.ip_ctrl = IPMPC(
+                self.nx, self.nu, T,
+                u_lower=env.action_space.low, u_upper=env.action_space.high,
+                dyn=env.dynamics, dyn_jac=dyn_jac, qp_iter=qp_iter, dtype=dtype,
+                eps=ip_eps, grad_method=ip_grad_method, device=device,
+            )
 
     def init_state(self, bsz: int) -> ALState:
         return self.ctrl.init_state(bsz)
@@ -62,13 +76,18 @@ class TrackingMPC:
         solve's rho-cap exit; with linearize_once too, the AL loop runs on
         the dynamics linearised once at the warm-started iterate, with a
         fixed budget of 8 iterations whose exits govern termination
-        (`tracking_mpc.py:170-178`)."""
+        (`tracking_mpc.py:170-178`). With solver_type "ip" the SQP solve
+        runs instead, from x_ref and u_ref, and neither option applies."""
         bsz = x0.shape[0]
         net_dtype = x_ref.dtype
         xu_ref = torch.cat([x_ref, u_ref], dim=-1).to(self.dtype)
         Q = self.Q0.expand(bsz, self.T, self.nx + self.nu)
         p, f = self.compute_pf(xu_ref, Q)
         cost = QuadCost(Q=Q, q=p, f=f)
+        if self.solver_type == "ip":
+            x, u = self.ip_ctrl.solve(x0, cost, x_init=x_ref, u_init=u_ref)
+            status = torch.zeros((bsz,), dtype=torch.bool, device=x0.device)
+            return x.to(net_dtype), u.to(net_dtype), status, state
         obs = self.ctrl.select_obstacles(x_ref.to(self.dtype))
         if linearize_once and streaming:
             x, u, status, new_state = self.ctrl.solve_linearize_once(x0, cost, state,

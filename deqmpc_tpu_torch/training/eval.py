@@ -16,7 +16,11 @@ angle dim of the env (`utils.angle_idxs_for_env`), and success is judged
 on the env's position-like dims, both as in JAX. For an env with
 obstacles the CLI gives the policy the field (`train.build_obstacles`)
 and the JSON adds `collision_rate`, the share of episodes that entered a
-sphere at some tick.
+sphere at some tick. The policy takes the checkpoint's `qp_solve`,
+`lastqp_solve` and `solver_type` (`eval.py:84-99`), so a diff-mpc
+checkpoint is served with its final solve; `--solver_type ip` serves the
+same weights through the interior-point solve (JAX's `train.py --eval
+--solver_type ip`).
 
 CLI (`--ep_len` defaults to the env's `_max_episode_steps`: 100 ticks for
 RexQuadrotor and FlyingCartpole, 200 for the pendulum and the cartpole, as
@@ -26,6 +30,8 @@ at `--ep_len 360`):
       --episodes 100 [--device cpu] [--out result.json]
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/flying_deqmpc_nn \
       --episodes 100 --ep_len 360
+  python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/pendulum_diffmpc_deq --episodes 100
+  python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/pendulum_deqmpc --solver_type ip
 """
 from __future__ import annotations
 
@@ -140,10 +146,14 @@ def main(argv=None) -> Dict:
     ap.add_argument("--ep_len", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--solver_type", choices=["al", "ip"], default=None,
+                    help="the tracking solve, in place of the checkpoint's")
     ap.add_argument("--out", default=None, help="also write the result JSON here")
     a = ap.parse_args(argv)
     device = resolve_device(a.device)
     state, args = load_checkpoint(a.ckpt, device)
+    if a.solver_type is not None:
+        args["solver_type"] = a.solver_type
     env = make_env(args["env"])
     policy = build_policy(args, env, device, obstacles=build_obstacles(env))
     policy.model.load_state_dict(state)
@@ -152,6 +162,7 @@ def main(argv=None) -> Dict:
                       seed=a.seed, device=device)
     res.update(ckpt=a.ckpt, episodes=a.episodes,
                ep_len=a.ep_len or env._max_episode_steps, seed=a.seed,
+               model_type=args.get("model_type"), solver_type=args.get("solver_type", "al"),
                device=str(device), wall_s=time.perf_counter() - t0)
     if device.type == "cuda":
         res.update(card_info())

@@ -1,11 +1,12 @@
 """Training: imitation learning of a DEQ-MPC policy from expert windows.
 
-Port of `preprocess_batch`, `make_train_step`,
+Port of `apply_model_type_presets`, `preprocess_batch`, `make_train_step`,
 `make_streaming_train_step`, `validate_policy` and the train CLI
 (`deqmpc_tpu/training/train.py:40-190,247-260,262-398,404,492-700`) for
-the deq-mpc-deq and deq-mpc-nn models (configs #1-#5 of `configs/run.sh`;
-the obstacle env of #3b gets the solver's sphere rows from
-`build_obstacles`). One step:
+every model type of the JAX CLI (deq-mpc-deq, deq-mpc-nn, deq, nn,
+diff-mpc-deq, diff-mpc-nn; configs #1-#5 of `configs/run.sh` and the
+diff-mpc arms) and both solvers (`--solver_type al|ip`); the obstacle env
+of #3b gets the solver's sphere rows from `build_obstacles`. One step:
 the cold-start policy forward (N rounds of network -> AL solve), the
 per-round loss, `backward()` (the phantom gradient through the DEQ cell,
 the implicit backward of each round's last Newton solve), a clip of the
@@ -17,7 +18,10 @@ its batches are windows of T + L states. The clip is optax's
 `clip_by_global_norm`: gradients are scaled by 2/||g|| only when
 ||g|| >= 2, with no epsilon (`torch.nn.utils.clip_grad_norm_` adds 1e-6
 to the norm, so it is not used). Adam is `torch.optim.Adam`, the same
-update as `optax.adam` (b1 0.9, b2 0.999, eps 1e-8).
+update as `optax.adam` (b1 0.9, b2 0.999, eps 1e-8). The model type sets
+the forward's `qp_solve` and `lastqp_solve` (`apply_model_type_presets`);
+with `--pretrain` the first PRETRAIN_STEPS steps run the network alone
+(both off), as JAX's gate does (`train.py:612-633`).
 
   python -m deqmpc_tpu_torch.training.train --env pendulum --model_type deq-mpc-deq \\
       --T 5 --deq_iter 6 --hdim 256 --bsz 128 [--max_train_steps 300 --val_every 100] \\
@@ -30,6 +34,10 @@ update as `optax.adam` (b1 0.9, b2 0.999, eps 1e-8).
       --nq 7 ... --load --models_dir checkpoints --ckpt flying_deqmpc_nn
   python -m deqmpc_tpu_torch.training.train --env rexquadrotor --nq 6 ... \\
       --streaming --streaming_steps 2 --load --models_dir checkpoints --ckpt rexquad_streaming
+  python -m deqmpc_tpu_torch.training.train --env FlyingCartpole --model_type diff-mpc-deq \\
+      --nq 7 --T 5 --hdim 256 --load --models_dir checkpoints --ckpt flying_diffmpc_deq
+  python -m deqmpc_tpu_torch.training.train --env pendulum --solver_type ip --T 5 \\
+      --deq_iter 6 --hdim 256 --bsz 128 [--qp_iter 1 --eps 1e-2 --ip_grad_method analytic]
   python -m deqmpc_tpu_torch.training.train ... --load --ckpt X --eval \\
       [--eval_episodes 32 --eval_ep_len 100 --eval_warm_start auto|on|off]
 
@@ -61,6 +69,7 @@ from ..utils.checkpoint import (is_port_checkpoint, load_checkpoint, read_port_c
                                 save_checkpoint)
 
 MAX_GRAD_NORM = 2.0  # `train.py:560`
+PRETRAIN_STEPS = 5000  # network-only steps under --pretrain (`train.py:612`)
 
 
 # -- data ---------------------------------------------------------------------
@@ -113,17 +122,18 @@ def _window(batch, start: int, T: int):
             batch["mask"][:, start:start + T])
 
 
-def _cold_forward(policy, batch):
+def _cold_forward(policy, batch, **mode):
     obs = batch["obs"][:, -1] if batch["obs"].dim() == 3 else batch["obs"]
-    policy_out = policy.forward(obs)
+    policy_out = policy.forward(obs, **mode)
     return policy_out, compute_loss_deqmpc(policy, *_window(batch, 0, policy.T), policy_out,
                                            x_init=policy_out["init_states"])
 
 
-def loss_fn(policy, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def loss_fn(policy, batch: Dict[str, torch.Tensor], **mode) -> Dict[str, torch.Tensor]:
     """The forward and the loss of one batch (`make_train_step.loss_fn`),
-    on the first T states of its windows."""
-    return _cold_forward(policy, batch)[1]
+    on the first T states of its windows. `mode`: the forward's
+    `qp_solve`/`lastqp_solve`, by default the policy's."""
+    return _cold_forward(policy, batch, **mode)[1]
 
 
 def streaming_loss_fn(policy, batch: Dict[str, torch.Tensor], steps: int) -> Dict[str, torch.Tensor]:
@@ -131,11 +141,13 @@ def streaming_loss_fn(policy, batch: Dict[str, torch.Tensor], steps: int) -> Dic
     the cold forward's loss on states 0..T-1, then for l = 1..`steps` a
     warm-started forward from state l and the previous carry, with its loss
     on states l..l+T-1; the losses summed, loss_end their mean, the
-    per-round losses the last forward's."""
-    policy_out, d = _cold_forward(policy, batch)
+    per-round losses the last forward's. As in JAX, every forward takes the
+    policy's `qp_solve` and no final solve."""
+    mode = dict(lastqp_solve=False)
+    policy_out, d = _cold_forward(policy, batch, **mode)
     total, loss_ends = d["loss"], [d["loss_end"]]
     for l in range(1, steps + 1):
-        policy_out = policy.forward_warm_start(batch["state"][:, l], policy_out["carry"])
+        policy_out = policy.forward_warm_start(batch["state"][:, l], policy_out["carry"], **mode)
         d = compute_loss_deqmpc(policy, *_window(batch, l, policy.T), policy_out)
         total = total + d["loss"]
         loss_ends.append(d["loss_end"])
@@ -165,11 +177,14 @@ def make_optimizer(policy, lr: float = 1e-3) -> torch.optim.Optimizer:
     return torch.optim.Adam(policy.model.parameters(), lr=lr)
 
 
-def make_loss_fn(streaming_steps: int = 0) -> Callable:
-    """`loss_fn`, or with streaming_steps L > 0 the streaming loss of L warm
-    forwards."""
+def make_loss_fn(streaming_steps: int = 0, pretrain: bool = False) -> Callable:
+    """`loss_fn`; with streaming_steps L > 0 the streaming loss of L warm
+    forwards; with `pretrain` the network-only loss (no solve, no final
+    solve: `make_train_step(pretrain=True)`)."""
     if streaming_steps > 0:
         return functools.partial(streaming_loss_fn, steps=streaming_steps)
+    if pretrain:
+        return functools.partial(loss_fn, qp_solve=False, lastqp_solve=False)
     return loss_fn
 
 
@@ -209,8 +224,6 @@ def validate_policy(policy, val_samples: List[Dict[str, torch.Tensor]],
 
 # -- CLI ------------------------------------------------------------------------
 
-# the JAX CLI's model types; all but deq-mpc-deq and deq-mpc-nn raise
-# NotImplementedError
 MODEL_TYPES = ["deq-mpc-deq", "deq", "nn", "diff-mpc-deq", "diff-mpc-nn", "deq-mpc-nn"]
 
 
@@ -236,6 +249,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--teacher", type=str, default="mpc",
                    help="the expert data: data/expert_traj_<teacher>-<spec id>_new.pkl")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--solver_type", type=str, default="al", choices=["al", "ip"],
+                   help="the tracking solve: augmented Lagrangian or interior-point SQP")
+    p.add_argument("--qp_iter", type=int, default=1,
+                   help="SQP iterations of the interior-point solve")
+    p.add_argument("--eps", type=float, default=1e-2,
+                   help="the interior-point solve's per-sample convergence threshold")
+    p.add_argument("--ip_grad_method", type=str, default="analytic",
+                   choices=["analytic", "autodiff", "finite_diff"],
+                   help="the interior-point solve's dynamics linearisation")
+    p.add_argument("--pretrain", action="store_true",
+                   help=f"network-only steps (no solve) until step {PRETRAIN_STEPS}")
     p.add_argument("--streaming", action="store_true")
     p.add_argument("--streaming_steps", type=int, default=3)
     p.add_argument("--streaming_start_iter", type=int, default=0)
@@ -249,22 +273,45 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+def apply_model_type_presets(args):
+    """What each model type sets (`train.py:167-188`): `deq` (false: the
+    feed-forward `NNMPCPolicy`), the forward's `qp_solve` and
+    `lastqp_solve`, and for the one-round types `deq_iter` = 1 and for the
+    nn ones `deq_type`."""
+    mt = args.model_type
+    if mt == "deq-mpc-deq":
+        args.deq, args.qp_solve, args.lastqp_solve = True, True, False
+    elif mt == "deq-mpc-nn":
+        args.deq, args.qp_solve, args.lastqp_solve = True, True, False
+        args.deq_type = "nn"
+    elif mt == "deq":
+        args.deq, args.qp_solve, args.lastqp_solve = True, False, False
+        args.deq_iter = 1
+    elif mt == "nn":
+        args.deq, args.qp_solve, args.lastqp_solve = False, False, False
+        args.deq_iter = 1
+    elif mt == "diff-mpc-deq":
+        args.deq, args.qp_solve, args.lastqp_solve = True, False, True
+        args.deq_iter = 1
+    elif mt == "diff-mpc-nn":
+        args.deq, args.qp_solve, args.lastqp_solve = True, False, True
+        args.deq_iter = 1
+        args.deq_type = "nn"
+    return args
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     args, rest = build_argparser().parse_known_args(argv)
     if rest:
         raise NotImplementedError(f"flags not ported yet: {' '.join(rest)}")
-    if args.model_type not in ("deq-mpc-deq", "deq-mpc-nn"):
-        raise NotImplementedError(f"model_type={args.model_type!r} is not ported yet")
-    # the deq-mpc-deq and deq-mpc-nn presets (`train.py:167-188`) and the
-    # JAX CLI's defaults of the flags the port does not take
+    # the JAX CLI's defaults of the flags the port does not take, then the
+    # model type's presets
     vars(args).update(
-        deq=True, qp_solve=True, lastqp_solve=False,
-        deq_type="nn" if args.model_type == "deq-mpc-nn" else "deq",
-        dtype="float32", rho_max=None,
+        deq_type="deq", dtype="float32", rho_max=None,
         layer_type="gcn", kernel_width=3, m=5, max_steps=10, deq_reg=0.1, loss_type="l1",
         policy_out_type=1, deq_out_type=1, fp_type="anderson", grad_type="fp_grad",
         rho_init_max=1e4)
-    return args
+    return apply_model_type_presets(args)
 
 
 def streaming_schedule(args: argparse.Namespace) -> int:
@@ -319,15 +366,22 @@ def main(argv=None) -> Dict:
     ckpt_path = os.path.join(args.models_dir, name)
 
     streaming_active = bool(args.streaming and args.streaming_start_iter == 0)
-    loss = make_loss_fn(args.streaming_steps if streaming_active else 0)
+    pretrain_active = bool(args.pretrain and not streaming_active)
+    loss = make_loss_fn(args.streaming_steps if streaming_active else 0, pretrain_active)
     best_val, curve = np.inf, []
     losses, losses_end = [], []
     t_window = time.perf_counter()
     for i in range(args.max_train_steps):
         if args.streaming and not streaming_active and i > args.streaming_start_iter:
             # the switch to the streaming step (`train.py:630-634`)
-            streaming_active = True
+            streaming_active, pretrain_active = True, False
             loss = make_loss_fn(args.streaming_steps)
+        elif pretrain_active and i >= PRETRAIN_STEPS:
+            # the end of the network-only phase (`train.py:635-642`): the two
+            # phases' validation losses do not compare
+            pretrain_active, best_val = False, np.inf
+            loss = make_loss_fn()
+            print(f"[{i}] pretrain done: switching deq -> deqmpc", flush=True)
         batch = preprocess_batch(args.env, env.nx,
                                  sample_trajectory(gt, args.bsz, 1, horizon, rng))
         out = train_step(policy, optimizer, to_device(batch, device), loss=loss)
@@ -344,7 +398,7 @@ def main(argv=None) -> Dict:
                "loss_end": float(torch.stack(losses_end).mean()),
                "val_loss_end": val, "grad_norm": float(out["grad_norm"]),
                "s_per_step": (time.perf_counter() - t_window) / len(losses),
-               "streaming": streaming_active}
+               "streaming": streaming_active, "pretrain": pretrain_active}
         curve.append(row)
         print(json.dumps(row), flush=True)
         if args.save and val < best_val:
@@ -352,7 +406,8 @@ def main(argv=None) -> Dict:
             save_checkpoint(ckpt_path, policy.model, optimizer, i, vars(args))
         losses, losses_end = [], []
         t_window = time.perf_counter()
-    result = {"env": args.env, "steps": args.max_train_steps, "bsz": args.bsz,
+    result = {"env": args.env, "model_type": args.model_type, "solver_type": args.solver_type,
+              "steps": args.max_train_steps, "bsz": args.bsz,
               "hdim": args.hdim, "deq_iter": args.deq_iter, "total_deq_iter": total_deq_iter,
               "streaming_steps": args.streaming_steps if args.streaming else 0,
               "device": str(device), "curve": curve,

@@ -8,7 +8,8 @@ tree: nested maps with string keys and array leaves, each array an ext
 value of type 1 that packs (shape, dtype name, raw bytes) with msgpack
 again. `msgpack_restore` below decodes that subset of msgpack (maps,
 arrays, strings, bin, ints, floats, nil, bool and ext type 1);
-`params_from_jax` maps the tree onto the port's `DEQLayer`.
+`params_from_jax` maps the tree onto the port's `DEQLayer`, or onto the
+trunk of `policies/nn_policy.NNPolicy`.
 
 A port checkpoint (`save_checkpoint`) is a `torch.save` zip of
 {"format", "model" (the `DEQLayer` state dict), "optimizer" (the
@@ -146,7 +147,9 @@ def msgpack_restore(data: bytes) -> Any:
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a `DEQLayer` parameter tree of the JAX package
     ({"input": {"params": ...}, "cell": ..., "out": ..., "iter_emb": ...})
-    onto the state dict of the port's `models.deq_layer.DEQLayer`.
+    onto the state dict of the port's `models.deq_layer.DEQLayer`, or an
+    `NNPolicy` tree ({"params": {"Dense_0": ..., "LayerNorm_0": ..., ...}})
+    onto its trunk, `NNPolicy.net`.
     Dense kernels (in, out) become `nn.Linear` weights (out, in); every
     other leaf keeps its layout (UnfoldConv kernels stay (k, Cin, Cout))."""
     state = {}

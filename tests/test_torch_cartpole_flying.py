@@ -192,8 +192,9 @@ def test_train_cli_runs_deq_mpc_nn_and_the_sac_teacher_on_cpu():
     assert np.isfinite(res["curve"][0]["val_loss_end"])
     args = train.parse_args(["--model_type", "deq-mpc-nn"])
     assert args.deq_type == "nn" and args.teacher == "mpc"
-    with pytest.raises(NotImplementedError, match="diff-mpc-nn"):
-        train.parse_args(["--model_type", "diff-mpc-nn"])
+    args = train.parse_args(["--model_type", "diff-mpc-nn"])
+    assert (args.deq_type, args.deq_iter, args.qp_solve, args.lastqp_solve) == ("nn", 1, False,
+                                                                               True)
 
 
 def test_build_obstacles_is_the_env_field():

@@ -150,7 +150,9 @@ def test_port_imports_no_jax():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
         for p in (REPO / "deqmpc_tpu_torch").rglob("*.py"))
-    assert "deqmpc_tpu_torch.ops.block_tridiag" in modules
+    assert {"deqmpc_tpu_torch.ops.block_tridiag", "deqmpc_tpu_torch.solvers.pdipm",
+            "deqmpc_tpu_torch.solvers.ip_mpc", "deqmpc_tpu_torch.policies.nn_policy"
+            } <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"

@@ -209,3 +209,148 @@ def test_new_config_train_step_on_card_matches_cpu(case):
     for k, g in grads["cpu"].items():
         torch.testing.assert_close(grads["cuda"][k], g, rtol=1e-5,
                                    atol=1e-5 * float(g.abs().max()), msg=k)
+
+
+# -- diff-mpc-deq (one round, then the final 10-iteration solve) and the
+# interior-point layer ---------------------------------------------------------
+
+def _diffmpc_pair(seed=0, rho_max=1e5):
+    """The same f64 diff-mpc-deq pendulum policy (hdim 32) on the card and
+    on the CPU."""
+    env = make_env("pendulum")
+    cfg = PolicyConfig(nx=env.nx, nu=env.nu, nq=1, T=5, dt=env.dt, hdim=32, deq_iter=1,
+                       rho_max=rho_max, solver_dtype=torch.float64, qp_solve=False,
+                       lastqp_solve=True)
+    pols = {}
+    for dev in ("cuda", "cpu"):
+        pols[dev] = DEQMPCPolicy(cfg, env, device=dev).init(seed)
+        pols[dev].model.double()
+    return env, pols
+
+
+def test_diffmpc_tick_on_card_matches_cpu():
+    """The card's first actions within 1e-6 of the CPU's on all samples but
+    one, and that one within the f64 tick-0 limit of 1e-3: the final solve
+    ends at rho 1e5, where a line-search tie can move a sample by far more
+    than its rounding (JAX's own controls move by 2.5e-3 under a 1e-14
+    move of the start states on a sample of `tests/test_torch_diffmpc.py`)."""
+    env, pols = _diffmpc_pair()
+    obs = env.reset(torch.Generator().manual_seed(3), 8, device="cpu", dtype=torch.float64)
+    u = {}
+    with torch.inference_mode():
+        for dev, pol in pols.items():
+            launches = dict(bt.block_tridiag_solve.launches_by_kernel)
+            u[dev] = pol.forward(obs.to(dev))["trajs"][-1][2].cpu()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                by = bt.block_tridiag_solve.launches_by_kernel
+                assert by["warp"] - launches["warp"] == pol.newton_steps + pol.newton_retries
+    gap = (u["cuda"] - u["cpu"]).abs().flatten(1).amax(dim=1)
+    assert int((gap > 1e-6).sum()) <= 1 and float(gap.max()) <= 1e-3, gap
+    assert pols["cuda"].newton_steps > 10  # the final solve ran on the card
+
+
+def test_diffmpc_train_step_on_card_matches_cpu():
+    """At rho_max 1e3. At the config's 1e5 the final solve leaves controls
+    on the box bound within rounding, and whether a bound's row enters the
+    backward's Hessian (a jump of rho in one entry of D) is rounding, and
+    the gradients then part while the losses agree (the test below). No
+    sample may be zeroed on either device."""
+    env, pols = _diffmpc_pair(seed=1, rho_max=1e3)
+    rng = np.random.default_rng(1)
+    obs = np.stack([rng.uniform(0, 2 * np.pi, 8), rng.uniform(-1, 1, 8)], axis=-1)
+    batch = {"obs": obs[:, None], "state": obs[:, None] + 0.1 * rng.normal(size=(8, 5, 2)),
+             "action": rng.normal(size=(8, 5, 1)), "mask": np.ones((8, 5))}
+    grads, losses = {}, {}
+    for dev, pol in pols.items():
+        launches = dict(bt.block_tridiag_solve.launches_by_kernel)
+        d = train.loss_fn(pol, train.to_device(batch, dev, torch.float64))
+        d["loss"].backward()
+        assert pol.backward_solves == 1  # the final solve's backward alone
+        assert int(pol.newton_solver.backward_zeroed) == 0
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            by = bt.block_tridiag_solve.launches_by_kernel
+            assert by["warp"] > launches["warp"] and by["block"] == launches["block"]
+        losses[dev] = float(d["loss"])
+        grads[dev] = {k: p.grad.cpu() for k, p in pol.model.named_parameters() if p.grad is not None}
+    assert np.isclose(losses["cuda"], losses["cpu"], rtol=1e-6, atol=0)
+    assert set(grads["cuda"]) == set(grads["cpu"])
+    for k, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k], g, rtol=1e-5,
+                                   atol=1e-5 * float(g.abs().max()), msg=k)
+
+
+def test_qp_layer_gradient_on_card_matches_cpu():
+    """The interior-point layer's forward and its implicit backward (the six
+    input gradients) on the card against the CPU, f64, on a feasible batch
+    with active inequalities."""
+    from deqmpc_tpu_torch.solvers import pdipm
+
+    rng = np.random.default_rng(0)
+    bsz, nz, ni, ne = 16, 6, 5, 2
+    L = rng.normal(size=(bsz, nz, nz))
+    Q = L @ np.swapaxes(L, -1, -2) + nz * np.eye(nz)
+    p, G, A = rng.normal(size=(bsz, nz)), rng.normal(size=(bsz, ni, nz)), rng.normal(
+        size=(bsz, ne, nz))
+    z_f = rng.normal(size=(bsz, nz))
+    h = np.einsum("bij,bj->bi", G, z_f) + 0.1 * np.abs(rng.normal(size=(bsz, ni)))
+    b = np.einsum("bij,bj->bi", A, z_f)
+    gz = rng.normal(size=(bsz, nz))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t = [torch.as_tensor(a, device=dev).requires_grad_() for a in (Q, p, G, h, A, b)]
+        z = pdipm.qp_layer(*t, 25)
+        z.backward(torch.as_tensor(gz, device=dev))
+        res[dev] = [z.detach().cpu()] + [a.grad.cpu() for a in t]
+    for name, a, c in zip(("z", "dQ", "dp", "dG", "dh", "dA", "db"), res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, c, rtol=1e-8, atol=1e-9, msg=name)
+    assert float(res["cpu"][4].abs().max()) > 1e-3  # active rows: h has a gradient
+
+
+def test_diffmpc_backward_at_rho_max_turns_on_the_active_set(monkeypatch):
+    """The config's rho_max 1e5, the step of the test above: the losses
+    agree, and where the backward's Hessian blocks D differ between the
+    card and the CPU they differ by exactly rho, a box row active on one
+    device only (a control the final solve leaves on its bound within
+    rounding). The solves themselves agree on the same D. Prints the
+    numbers PERF.md reports."""
+    from deqmpc_tpu_torch.ops import tridiag
+    from deqmpc_tpu_torch.solvers import newton_al
+
+    env, pols = _diffmpc_pair(seed=1)
+    rng = np.random.default_rng(1)
+    obs = np.stack([rng.uniform(0, 2 * np.pi, 8), rng.uniform(-1, 1, 8)], axis=-1)
+    batch = {"obs": obs[:, None], "state": obs[:, None] + 0.1 * rng.normal(size=(8, 5, 2)),
+             "action": rng.normal(size=(8, 5, 1)), "mask": np.ones((8, 5))}
+    good, kept, losses, grads = newton_al.implicit_grads, {}, {}, {}
+    for dev, pol in pols.items():
+        def keep(D, O, xu, g, dev=dev):
+            kept[dev] = [t.detach().cpu().clone() for t in (D, O, g)]
+            return good(D, O, xu, g)
+
+        monkeypatch.setattr(newton_al, "implicit_grads", keep)
+        d = train.loss_fn(pol, train.to_device(batch, dev, torch.float64))
+        d["loss"].backward()
+        losses[dev] = float(d["loss"])
+        grads[dev] = torch.cat([p.grad.flatten().cpu() for p in pol.model.parameters()
+                                if p.grad is not None])
+    rho = pols["cpu"].cfg.rho_max
+    (D_card, _, _), (D, O, g) = kept["cuda"], kept["cpu"]
+    diff = (D_card - D).abs()
+    moved = diff > 1e-6 * float(D.abs().max())
+    x_plain = tridiag.block_tridiag_solve(D, O, g)
+    x_kernel = bt.block_tridiag_solve(D.cuda(), O.cuda(), g.cuda()).cpu()
+    H = tridiag.block_tridiag_dense(D.tril() + D.tril(-1).mT, O)
+    x_dense = torch.linalg.solve(H, g.reshape(g.shape[0], -1, 1)).reshape(g.shape)
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    grad_gap = rel(grads["cuda"], grads["cpu"])
+    print(f"loss gap {abs(losses['cuda'] - losses['cpu']) / abs(losses['cpu']):.3g}, "
+          f"D entries moved {int(moved.sum())} (by {diff[moved].tolist()}), gradient gap "
+          f"{grad_gap:.3g}; same D: kernel vs plain {rel(x_kernel, x_plain):.3g}, "
+          f"dense LU vs plain {rel(x_dense, x_plain):.3g}")
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-9 * abs(losses["cpu"])
+    assert bool(((diff[moved] - rho).abs() <= 1e-6 * rho).all())
+    assert rel(x_kernel, x_plain) <= 1e-8 and rel(x_dense, x_plain) <= 1e-8
+    if not bool(moved.any()):
+        assert grad_gap <= 1e-5
