@@ -102,9 +102,10 @@ Phases, each announced on a line of its own with the seconds since start:
      on this path it is 0.2^9 on every sample, as in JAX) that the f64
      check must reject;
  21. train config #1 with the interior-point solve from a seeded fresh
-     policy: step 0 card vs CPU in f64 through the qp_layer backward (its
-     pull-back with the sign flipped must fail), 3 steps, one qp_layer
-     backward a round.
+     policy: step 0 card vs CPU in f64, 3 steps, one qp_layer backward a
+     round; the path's first QP card vs CPU in f64, its solution (2
+     interior-point iterations in place of 18 must fail) and its six input
+     gradients (the pull-back with the sign flipped must fail).
 Phases 1-3 run first, alone. Phases 4-10 and 12-21 then run in the
 worker processes of LANES, four at once, each lane's phases in turn
 (each keeps the card idle over 95% of its time, so they share it);
@@ -271,12 +272,8 @@ def device_ms(fn, key, iters=50):
     count = sum(e.count for e in events)
     total_us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
                    for e in events)
-    if count == 0 or total_us <= 0:
-        # some machines' CUPTI records no device event; the CUDA-event
-        # times stand, the device times are "not measured"
-        print(f"[chip_smoke]   the profiler recorded {count} launches of {key} and {total_us} us "
-              f"in {iters} calls: device time not measured", flush=True)
-        return None
+    check(count > 0 and total_us > 0,
+          f"the profiler shows {count} launches of {key} and {total_us} us for {iters} calls")
     return total_us / 1e3 / count
 
 
@@ -317,10 +314,8 @@ def time_solve(bt, tridiag, bsz, T, n, dtype):
         row.setdefault(f"{kernel}_ms", []).append(ms)
         row.setdefault(f"{kernel}_device_ms", []).append(dev)
     for key in ("warp_ms", "warp_device_ms", "block_ms", "block_device_ms"):
-        measured = [v for v in row[key] if v is not None]
-        row[key] = min(measured) if measured else None
-    row["speedup_device"] = (row["block_device_ms"] / row["warp_device_ms"]
-                             if row["block_device_ms"] and row["warp_device_ms"] else None)
+        row[key] = min(row[key])
+    row["speedup_device"] = row["block_device_ms"] / row["warp_device_ms"]
     return row
 
 
@@ -379,12 +374,19 @@ def rel_gap(a, b):
     return abs(float(a) - float(b)) / abs(float(b))
 
 
-def profiled(bt, fn):
+def profiled(bt, fn, what, policy):
     """One call of `fn` under torch.profiler (device activity only: host
     events of ~100k ops take minutes to sum): its wall time, the device's
-    busy time and idle share, and the warp kernel's launches and time."""
+    busy time and idle share, and the warp kernel's launches and time.
+    Fails unless the profiler recorded device time and every launch of the
+    warp kernel that its wrapper counted in the call, and no more, except
+    that the implicit backward's launches, which the autograd engine's
+    thread makes, may be missing: in two runs on an H100 the trace lost 1
+    and 6 launches of steps that make 6 on that thread, and none of a
+    tick's."""
     from torch.profiler import ProfilerActivity, profile
 
+    before = bt.block_tridiag_solve.launches_by_kernel["warp"], policy.backward_solves
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -401,8 +403,13 @@ def profiled(bt, fn):
                                              e.key, re.I)
              and not any(k in e.key for k in bt.KERNEL_FUNCTIONS.values())]
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
-    if not kernels or busy_us <= 0:  # no device event recorded: not measured
-        return {"wall_s": wall, "device_busy_ms": None, "device_idle_share": None}
+    counted = bt.block_tridiag_solve.launches_by_kernel["warp"] - before[0]
+    backward = policy.backward_solves - before[1]
+    check(kernels and busy_us > 0, f"{what}: the profiler recorded no device time")
+    seen = sum(e.count for e in solve)
+    check((seen > 0) == (counted > 0) and counted - backward <= seen <= counted,
+          f"{what}: the profiler shows {seen} launches of the warp kernel, its wrapper "
+          f"counted {counted} ({backward} of them the backward's)")
     return {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernel_launches": sum(e.count for e in kernels),
@@ -430,17 +437,16 @@ def flip_qp_layer_backward(pdipm):
 
 
 def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env, batch_np,
-                 loss=None, sensitivity=True, plant=None):
+                 loss=None, sensitivity=True, planted=True):
     """A training step of a checkpoint's configuration (#4, #2 or #3; #5
     with the streaming `loss`; the diff-mpc arm; #1 with the interior-point
     solve from a fresh `state`): step 0 on the card against the CPU, in f32
     (the trained configuration) and f64 (tight), with `sensitivity` each
     beside the card's own move under a perturbation of the start states;
-    the f64 step 0 with the planted fault `plant` (default: the implicit
-    NewtonAL backward's signs flipped); then TRAIN_STEPS steps on the card
-    (the main path) and one profiled step."""
+    with `planted`, the f64 step 0 with the implicit NewtonAL backward's
+    signs flipped; then TRAIN_STEPS steps on the card (the main path) and
+    one profiled step."""
     loss = loss or train.loss_fn
-    plant = plant or (lambda: flip_newton_backward(newton_al))
 
     def fresh(dev, dtype=torch.float32):
         p = build_policy(args, env, dev)
@@ -472,14 +478,14 @@ def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, 
         out["card_step0_f64_moved_1e-12"] = step0("cuda", torch.float64, 1e-12)
         out["step0_gap_sensitivity_f64_1e-12"] = gaps(out["card_step0_f64_moved_1e-12"],
                                                       out["card_step0_f64"])
-    # a planted fault the f64 check should see
-    undo = plant()
-    try:
-        out["card_step0_f64_planted_sign_flip"] = step0("cuda", torch.float64)
-    finally:
-        undo()
-    out["step0_gap_planted_sign_flip_f64"] = gaps(out["card_step0_f64_planted_sign_flip"],
-                                                  out["cpu_step0_f64"])
+    if planted:  # a planted fault the f64 check should see
+        undo = flip_newton_backward(newton_al)
+        try:
+            out["card_step0_f64_planted_sign_flip"] = step0("cuda", torch.float64)
+        finally:
+            undo()
+        out["step0_gap_planted_sign_flip_f64"] = gaps(out["card_step0_f64_planted_sign_flip"],
+                                                      out["cpu_step0_f64"])
 
     policy, opt = fresh("cuda")
     batch = train.to_device(batch_np, "cuda")
@@ -515,17 +521,18 @@ def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, 
     out["backward_share"] = out["backward_s_median"] / step_s
 
     # one more step under the profiler: the kernel's device time per step
-    out["profiled_step"] = profiled(bt, lambda: train.train_step(policy, opt, batch, loss=loss))
+    out["profiled_step"] = profiled(bt, lambda: train.train_step(policy, opt, batch, loss=loss),
+                                    f"a profiled {args['env']} training step", policy)
     return out
 
 
-def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64),
-                planted_check=True):
+def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64)):
     """The checks of a training phase: finite steps, one implicit backward
     per round of each forward (for a diff-mpc step, the final solve's one;
     for the interior-point path, one qp_layer backward a round and no
     block-tridiagonal solve), every solve through the warp kernel, step 0
-    card vs CPU within STEP0_RTOL in `dtypes`, the planted fault rejected."""
+    card vs CPU within STEP0_RTOL in `dtypes`, the planted fault (where
+    the phase planted one) rejected, and the profiled step's launches."""
     mode = tr["mode"]
     ip = mode["solver_type"] == "ip"
     # backward solves a step: one a round with a solve in every round, one
@@ -544,6 +551,8 @@ def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64),
                   f"{what} step {i}: interior-point solves {s_}")
     if ip:
         check(tr["counts"]["launches"] == 0, f"{what}: block-tridiagonal launches on the IP path")
+        check(tr["profiled_step"]["dense_linalg_launches"] > 0,
+              f"{what}: no dense solve in the profiled step: {tr['profiled_step']}")
     else:
         check_all_warp(tr["counts"], what)
     check(tr["counts"]["backward_solves"] == TRAIN_STEPS * backward,
@@ -555,10 +564,9 @@ def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64),
         for k, lim in STEP0_RTOL[dtype].items():
             check(tr[key][k] <= lim,
                   f"{what} step 0 {k} ({dtype}), card vs CPU: relative gap {tr[key][k]} > {lim}")
-    check(not planted_check or tr["step0_gap_planted_sign_flip_f64"]["grad_norm"]
-          > STEP0_RTOL[torch.float64]["grad_norm"],
-          f"{what}: the f64 step-0 check passed a planted fault: "
-          f"{tr['step0_gap_planted_sign_flip_f64']}")
+    planted = tr.get("step0_gap_planted_sign_flip_f64")
+    check(planted is None or planted["grad_norm"] > STEP0_RTOL[torch.float64]["grad_norm"],
+          f"{what}: the f64 step-0 check passed a planted fault: {planted}")
 
 
 def train_pendulum(bt, train, build_policy, env, batch_np):
@@ -874,7 +882,8 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None):
                     out["gaps"]["planted_fault_O_transposed"] = out["planted"][name]["gap"]
                 print(f"[chip_smoke]   planted fault {name}: tick-0 action gap "
                       f"{json.dumps(out['planted'][name]['gap'])}", flush=True)
-    if systems:
+    if cfg.solver_type == "al":  # the interior-point solve makes no block-tridiagonal solve
+        check(systems, f"{ckpt}: no Newton system recorded at tick 0")
         out["served_systems"] = check_served_systems(bt, tridiag, systems, torch.float32)
 
     rows = record_obstacle_rows(policy, m.obstacle_residuals)
@@ -901,7 +910,8 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None):
     policy.forward = forward
     x = env.reset(torch.Generator().manual_seed(1), NEW_EPISODES, device="cuda")
     with torch.inference_mode():
-        res["profiled_tick"] = profiled(bt, lambda: policy.forward(x))
+        res["profiled_tick"] = profiled(bt, lambda: policy.forward(x), f"{ckpt} profiled tick",
+                                       policy)
     out["closed_loop"] = res
     return out
 
@@ -925,8 +935,10 @@ def check_served(sv, ckpt):
           f"{ckpt}: non-finite states or rewards in the closed loop")
     if sv["mode"]["solver_type"] == "ip":
         check(cl["counts"]["launches"] == 0 and cl["counts"]["newton_steps"] == 0
-              and all(t["ip_kkt_solves"] > 0 for t in cl["per_tick"]),
-              f"{ckpt} closed loop with the interior-point solve: {cl['counts']}")
+              and all(t["ip_kkt_solves"] > 0 for t in cl["per_tick"])
+              and cl["profiled_tick"]["dense_linalg_launches"] > 0,
+              f"{ckpt} closed loop with the interior-point solve: {cl['counts']}, profiled "
+              f"{cl['profiled_tick']}")
     else:
         check_all_warp(cl["counts"], f"{ckpt} closed loop")
 
@@ -1274,22 +1286,27 @@ def phase_train_new(ckpt, teacher):
     return run
 
 
-# the qp_layer backward at the interior-point training path's QPs, card vs
-# CPU in f64: relative to each gradient's largest entry
+# the interior-point training path's first QP, card vs CPU in f64, relative
+# to each tensor's largest entry: the qp_layer backward's six input
+# gradients, and the QP's solution (z, s, lam, nu; 5.3e-15 on an H100,
+# 0.52 at 2 iterations)
 QP_LAYER_RTOL = 1e-6
+QP_SOLVE_RTOL = 1e-9
 
 
 def qp_layer_on_path(policy, obs, pdipm, ip_mpc):
-    """The six input gradients of the first round's qp_layer call in the
-    policy's forward from `obs`, for a seeded cotangent, on the card and on
-    the CPU, in f64; with the pull-back's sign flipped on the card too. The
-    step's gradient cannot show the layer's backward on this path: its
-    controls sit on the box bound, and the solver path is 1.8e-6 of the
-    config-#1 gradient's norm (f64, CPU)."""
+    """The first round's qp_layer call in the policy's forward from `obs`,
+    captured and run again on the card and on the CPU in f64: its solution
+    (z, s, lam, nu) through `qp_solve` with the path's iterations, and with
+    2 iterations on the card (a planted fault); and the six input gradients
+    for a seeded cotangent, and with the pull-back's sign flipped on the
+    card (a planted fault). The step's gradient cannot show the layer's
+    backward on this path: its controls sit on the box bound, and the
+    solver path is 1.8e-6 of the config-#1 gradient's norm (f64, CPU)."""
     captured, layer = [], ip_mpc.qp_layer
 
     def keep(*a):
-        captured.append([t.detach().double().cpu() for t in a[:6]])
+        captured.append(([t.detach().double().cpu() for t in a[:6]], a[6]))
         return layer(*a)
 
     ip_mpc.qp_layer = keep
@@ -1298,12 +1315,16 @@ def qp_layer_on_path(policy, obs, pdipm, ip_mpc):
             policy.forward(obs)
     finally:
         ip_mpc.qp_layer = layer
-    qp = captured[0]
+    qp, iters = captured[0]
     gz = torch.randn(qp[1].shape, generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+
+    def solution(dev, n_iters=iters):
+        sol = pdipm.qp_solve(*[a.to(dev) for a in qp], n_iters)
+        return [t.cpu() for t in sol[:4]]
 
     def grads(dev):
         t = [a.to(dev, copy=True).requires_grad_() for a in qp]
-        z = pdipm.qp_layer(*t, 18)
+        z = pdipm.qp_layer(*t, iters)
         z.backward(gz.to(dev))
         return [a.grad.cpu() for a in t]
 
@@ -1318,16 +1339,20 @@ def qp_layer_on_path(policy, obs, pdipm, ip_mpc):
         return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-300)
                    for x, y in zip(a, b))
 
+    sol_cpu = solution("cpu")
     return {"shapes": {k: list(v.shape) for k, v in zip("Q p G h A b".split(), qp)},
+            "iters": iters, "solution_rel_gap_card_vs_cpu": gap(solution("cuda"), sol_cpu),
+            "solution_rel_gap_planted_2_iters": gap(solution("cuda", 2), sol_cpu),
             "rel_gap_card_vs_cpu": gap(card, cpu), "rel_gap_planted_sign_flip": gap(bad, cpu),
             "largest": {k: float(v.abs().max()) for k, v in zip("Q p G h A b".split(), cpu)}}
 
 
 def phase_train_ip(c):
     """Config #1 with the interior-point solve, from a seeded fresh policy:
-    step 0 card vs CPU in f64, TRAIN_STEPS steps, and the qp_layer backward
-    at the path's first QP card vs CPU (a planted sign flip of its
-    pull-back rejected)."""
+    step 0 card vs CPU in f64, TRAIN_STEPS steps, and the path's first QP
+    card vs CPU: its solution (2 iterations in place of the path's
+    rejected) and the qp_layer backward (a sign flip of its pull-back
+    rejected)."""
     from deqmpc_tpu_torch.solvers import ip_mpc, pdipm
 
     argv = ["--env", "pendulum", "--model_type", "deq-mpc-deq", "--T", "5", "--deq_iter", "6",
@@ -1338,8 +1363,7 @@ def phase_train_ip(c):
     batch_np = c.expert_batch("pendulum", env, 4, args["T"])
     phase("train: config #1, interior-point solve", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
     tr = train_config(c.bt, c.train, c.build_policy, c.DEQMPCPolicy, c.newton_al, state, args,
-                      env, batch_np, sensitivity=False,
-                      plant=lambda: flip_qp_layer_backward(pdipm))
+                      env, batch_np, sensitivity=False, planted=False)
     for s_ in tr["steps"]:
         print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
     pol = c.build_policy(args, env, "cuda")
@@ -1350,10 +1374,12 @@ def phase_train_ip(c):
     tr["qp_layer_on_path"] = layer = qp_layer_on_path(pol, obs, pdipm, ip_mpc)
     phase("train: config #1, interior-point solve done",
           **{k: v for k, v in tr.items() if k != "steps"})
-    check_train(tr, "config-#1 interior-point training", dtypes=(torch.float64,),
-                planted_check=False)
+    check_train(tr, "config-#1 interior-point training", dtypes=(torch.float64,))
     check(layer["rel_gap_card_vs_cpu"] <= QP_LAYER_RTOL < layer["rel_gap_planted_sign_flip"],
           f"qp_layer backward on the interior-point path, card vs CPU: {layer}")
+    check(layer["solution_rel_gap_card_vs_cpu"] <= QP_SOLVE_RTOL
+          < layer["solution_rel_gap_planted_2_iters"],
+          f"the interior-point path's QP solution, card vs CPU: {layer}")
     return tr, tr["counts"]
 
 

@@ -254,6 +254,80 @@ def test_train_step_loss_and_gradients_match_jax(name, monkeypatch):
     assert np.abs(_np(got["out.Conv_1.kernel"].grad)).max() > 1e-4
 
 
+def _jax_params_from_port(tree, state):
+    """The port's state dict carried into the JAX parameter tree `tree`
+    (`params_from_jax` backwards: Dense kernels transposed back)."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path if k == "params" else path + [k]) for k, v in node.items()}
+        if len(path) >= 2 and path[-2].startswith("Dense_") and path[-1] == "kernel":
+            arr = state[".".join(path[:-1] + ["weight"])].numpy().T
+        else:
+            arr = state[".".join(path)].numpy()
+        assert arr.shape == np.shape(node), path
+        return jnp.asarray(arr)
+
+    return walk(tree, [])
+
+
+def test_diffmpc_step_gradient_at_rho_max_jumps_in_jax_too():
+    """The diff-mpc step of `tests/test_torch_train_cuda.py` (pendulum,
+    hdim 32, the port's seeded weights, rho_max 1e5, its batch of 8) in
+    JAX and in the port, f64. At the batch the port's loss and gradient are
+    JAX's within 1e-9. Under 1e-14 relative moves of the start states
+    JAX's own gradient moves by at least JAX_GRADIENT_JUMP (a control of
+    the final solve on its box bound within rounding: whether its row
+    enters the backward's Hessian is rounding), and every gradient the
+    port reaches under the same moves is one that JAX reaches, within
+    1e-8. The card's gradient gap at this step is held against this jump
+    there. Prints the moves."""
+    from test_torch_train_cuda import JAX_GRADIENT_JUMP, _diffmpc_pair, _diffmpc_step_batch
+
+    env, pols = _diffmpc_pair(seed=1, devices=("cpu",))
+    pol = pols["cpu"]
+    kw = {k: getattr(pol.cfg, k) for k in ("nx", "nu", "nq", "T", "dt", "hdim", "deq_iter",
+                                           "rho_max")}
+    jpol = JaxPolicy(JaxPolicyConfig(**kw, solver_dtype=jnp.float64), jax_make_env("pendulum"))
+    params = _jax_params_from_port(jpol.init(jax.random.PRNGKey(0)), pol.model.state_dict())
+    _, loss_fn = jax_train.make_train_step(
+        jpol, optax.adam(1e-3), types.SimpleNamespace(qp_solve=False, lastqp_solve=True))
+    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    names = sorted(n for n, _ in pol.model.named_parameters() if n != "iter_emb")
+
+    def jax_step(b):
+        (loss, _), g = step(params, {k: jnp.asarray(v, jnp.float64) for k, v in b.items()},
+                            jnp.ones((1, 3)))
+        g = params_from_jax(jax.tree_util.tree_map(np.asarray, g))
+        return float(loss), np.concatenate([g[n].numpy().ravel() for n in names])
+
+    def port_step(b):
+        pol.model.zero_grad(set_to_none=True)
+        d = train.loss_fn(pol, train.to_device(b, "cpu", torch.float64))
+        d["loss"].backward()
+        grads = {n: p.grad.detach().numpy() for n, p in pol.model.named_parameters()
+                 if p.grad is not None}
+        return float(d["loss"]), np.concatenate([grads[n].ravel() for n in names])
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    batch = _diffmpc_step_batch()
+    (loss, g), (loss_port, g_port) = jax_step(batch), port_step(batch)
+    assert abs(loss_port - loss) <= 1e-9 * abs(loss) and rel(g_port, g) <= 1e-9
+    jax_grads, port_grads = [g], []
+    for seed in range(8):
+        moved = {**batch, "obs": batch["obs"] * (1 + 1e-14 * np.random.default_rng(seed).normal(
+            size=batch["obs"].shape))}
+        jax_grads.append(jax_step(moved)[1])
+        port_grads.append(port_step(moved)[1])
+    jumps = [rel(a, g) for a in jax_grads[1:]]
+    reached = [min(rel(a, b) for b in jax_grads) for a in port_grads]
+    print(f"JAX's own gradient moves {jumps}; the port's gradients, each from the nearest "
+          f"of JAX's {reached}")
+    assert max(jumps) >= JAX_GRADIENT_JUMP
+    assert max(reached) <= 1e-8
+
+
 # -- presets and the plain policy --------------------------------------------------
 
 @pytest.mark.parametrize("model_type", train.MODEL_TYPES)
