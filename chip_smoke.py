@@ -106,8 +106,28 @@ Phases, each announced on a line of its own with the seconds since start:
      round; the path's first QP card vs CPU in f64, its solution (2
      interior-point iterations in place of 18 must fail) and its six input
      gradients (the pull-back with the sign flipped must fail).
-Phases 1-3 run first, alone. Phases 4-10 and 12-21 then run in the
-worker processes of LANES, four at once, each lane's phases in turn
+ 22. serve `checkpoints/flying_obstacles_aware_r5` (the obstacle-aware
+     network on the dense field, 160 spheres of radius 0.4) as phases 12-14,
+     besides O transposed (f32) a planted fault the f64 tick-0 check must
+     reject: the obstacle features zeroed (the blind input, aware weights);
+ 23. train each policy variant (`--addmem`, `--policy_variant delta`,
+     `history --H 3`, `estpred --H 3`, `feedback`, `q`, `history --H 3
+     --deq_out_type 2`) on config #1 from a seeded fresh init, as config #4:
+     step 0 card vs CPU (f64 loss and gradient norm within STEP0_RTOL), the
+     sign flip and the variant's own planted fault rejected by the f64
+     check (the delta's straight-through multiply by the product rule, the
+     Q scaling without its +1, estpred's estimator with the initial-state
+     row), the delta's scales after step 0 within DELTA_SCALES_TOL, 3 steps
+     with their backward solves and zeroed share, all warp, one profiled
+     step; for estpred also the estimator's systems (its Newton steps,
+     retries, first solves' NaN share) against the plain solve;
+ 24. serve the variants JAX's eval serves (mem, delta, feedback, q): the
+     train CLI trains each one step on the card and writes its port
+     checkpoint, served as phases 12-14 for VARIANT_TICKS ticks.
+Phase 3 also holds the kernels at the estimator's shape (128,3,3) and at
+T = 1, (128,1,3) and (32,1,16).
+Phases 1-3 run first, alone. Phases 4-10 and 12-24 then run in the
+worker processes of LANES, six at once, each lane's phases in turn
 (each keeps the card idle over 95% of its time, so they share it);
 their times are taken under that sharing. Phase 11 runs last, alone.
 Before the end, one `[chip_smoke] report {...}` line holds every number
@@ -122,7 +142,9 @@ names: serve_rexquad, train_rexquad, train_pendulum, serve_pendulum,
 serve_streaming, train_streaming, bench_streaming, serve_cartpole,
 serve_flying, serve_flying_obstacles, train_cartpole, train_flying,
 serve_pendulum_diffmpc, serve_flying_diffmpc, train_diffmpc, serve_ip,
-train_ip.
+train_ip, serve_flying_aware, train_variants_{mem, delta, history,
+estpred, feedback, q, history_joint}, serve_variants_{mem, delta,
+feedback, q}.
 """
 import argparse
 import concurrent.futures
@@ -147,6 +169,21 @@ FLYING_OBS_CKPT = "checkpoints/flying_obstacles"  # config #3b
 # the diff-mpc arms: one network call, then a final AL solve of 10 iterations
 PENDULUM_DIFF_CKPT = "checkpoints/pendulum_diffmpc_deq"
 FLYING_DIFF_CKPT = "checkpoints/flying_diffmpc_deq"  # config #3's diff arm
+# the obstacle-aware network on the dense field (160 spheres, r 0.4)
+AWARE_CKPT = "checkpoints/flying_obstacles_aware_r5"
+# the policy variants, trained on config #1 from a seeded fresh init: the
+# train CLI's flags of each, and the history window
+VARIANT_H = 3
+VARIANT_FLAGS = {"mem": ["--addmem"], "delta": ["--policy_variant", "delta"],
+                 "history": ["--policy_variant", "history", "--H", str(VARIANT_H)],
+                 "estpred": ["--policy_variant", "estpred", "--H", str(VARIANT_H)],
+                 "feedback": ["--policy_variant", "feedback"], "q": ["--policy_variant", "q"],
+                 "history_joint": ["--policy_variant", "history", "--H", str(VARIANT_H),
+                                   "--deq_out_type", "2"]}
+# the variants JAX's eval serves (one state in): trained for one step by the
+# train CLI, which writes the port checkpoint they are served from
+SERVED_VARIANTS = ("mem", "delta", "feedback", "q")
+VARIANT_TICKS = 10
 EPISODES, TICKS = 32, 10
 PENDULUM_EPISODES, PENDULUM_TICKS = 32, 20
 TRAIN_BSZ, TRAIN_STEPS, PENDULUM_TRAIN_STEPS = 128, 3, 5
@@ -159,6 +196,7 @@ BENCH_FLEET, BENCH_REPS = 256, 3
 # tick-0 check the first OBSTACLE_STARTS states start beside a sphere
 NEW_EPISODES, NEW_TICKS, OBSTACLE_STARTS = 32, 20, 8
 SERVE_SHAPE = (EPISODES, 5, 16)  # the solve's shape on the served path
+TRACE_WAIT_S = 0.05  # the profiler's wait before a traced call and after its sync
 # the solve's shape in the config-#4 and config-#5 training steps, forward
 # and backward, whose numbers the kernels line reports
 MAIN_SHAPE = (TRAIN_BSZ, 5, 16)
@@ -170,14 +208,19 @@ STREAM_SHAPES = [(1, 5, 16), (3, 5, 16), (BENCH_FLEET, 5, 16)]
 # served and trained
 NEW_SHAPES = [(NEW_EPISODES, 10, 5), (TRAIN_BSZ, 10, 5), (NEW_EPISODES, 5, 18),
               (TRAIN_BSZ, 5, 18)]
+# the estpred estimator's systems (horizon H, the pendulum's n), and T = 1
+MHE_SHAPE = (TRAIN_BSZ, VARIANT_H, 3)
+T1_SHAPES = [(TRAIN_BSZ, 1, 3), (NEW_EPISODES, 1, 16)]
 KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (64, 20, 18), (4, 200, 18), SERVE_SHAPE,
-                 MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40), *STREAM_SHAPES, *NEW_SHAPES]
+                 MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40), *STREAM_SHAPES, *NEW_SHAPES,
+                 MHE_SHAPE, *T1_SHAPES]
 TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
                 ((1024, 5, 16), torch.float32), ((128, 5, 3), torch.float32),
                 ((64, 20, 18), torch.float64), ((1, 5, 16), torch.float32),
                 ((BENCH_FLEET, 5, 16), torch.float32),
                 (PENDULUM_SERVE_SHAPE, torch.float32),
-                *[(shape, torch.float32) for shape in NEW_SHAPES]]
+                *[(shape, torch.float32) for shape in NEW_SHAPES],
+                (MHE_SHAPE, torch.float32), (T1_SHAPES[0], torch.float32)]
 # H100 SXM, NVIDIA data sheet: HBM rate; f32 outside the tensor cores,
 # f64 through the tensor cores (DMMA), the fastest each type can run
 HBM_BYTES_PER_S = 3.35e12
@@ -216,6 +259,13 @@ STEP0_RTOL = {torch.float32: {"loss": 2e-2},
 # planted fault moves to 1.8e-3 and 6.8e-3
 WARM_ACTION_TOL = {torch.float32: ACTION_TOL[torch.float32],
                    torch.float64: {"median": ACTION_TOL[torch.float64]["median"]}}
+# the delta variant's scales after the f64 step 0 (Adam, then the EMA of the
+# rounds' median errors), card vs CPU, largest absolute gap: Adam's first
+# step moves each scale by about lr = 1e-3 whatever its gradient's size, so
+# a gradient sign that rounding flipped would show as 2e-3; the EMA adds 0.02
+# of medians of trajectories whose f64 card-vs-CPU gaps reach 1e-5 relative
+# (the variants' f64 step-0 losses: 6.1e-6 and 2.0e-5, PERF.md)
+DELTA_SCALES_TOL = 1e-4
 
 
 def phase(name, **info):
@@ -256,18 +306,48 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def trace(fn, what):
+    """One call of `fn` under torch.profiler (device activity only), synced:
+    (the profile, its wall seconds). The profiler runs TRACE_WAIT_S before
+    the call and after its sync: stopped at once, it now and then drops
+    the records of a call's last kernels, a served tick's last solve among
+    them, on an H100 with six processes tracing at once, and a call that
+    starts at once can lose its first kernels
+    (`deqmpc_tpu_torch/training/trace_tail.py` counts both, with and
+    without the waits). A trace that holds no device event at all is a
+    tracing failure, not the program's (on an H100, CUPTI recorded nothing
+    for one profile of two runs, the next ones in the same process
+    everything): it is said and `fn` traced once more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_WAIT_S)
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            time.sleep(TRACE_WAIT_S)
+        if any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.key_averages()):
+            return prof, wall
+        print(f"[chip_smoke]   the profiler recorded no device event in {what} "
+              f"(attempt {attempt})", flush=True)
+    return prof, wall
+
+
 def device_ms(fn, key, iters=50):
     """The kernel's own device time per launch: torch.profiler's device
     time of the kernels whose name holds `key`."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+
+    prof, _ = trace(calls, f"{iters} calls of {key}")
     events = [e for e in prof.key_averages() if key in e.key]
     count = sum(e.count for e in events)
     total_us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
@@ -374,28 +454,28 @@ def rel_gap(a, b):
     return abs(float(a) - float(b)) / abs(float(b))
 
 
-def profiled(bt, fn, what, policy):
+def profiled(bt, fn, what):
     """One call of `fn` under torch.profiler (device activity only: host
     events of ~100k ops take minutes to sum): its wall time, the device's
     busy time and idle share, and the warp kernel's launches and time.
     Fails unless the profiler recorded device time and every launch of the
-    warp kernel that its wrapper counted in the call, and no more, except
-    that the implicit backward's launches, which the autograd engine's
-    thread makes, may be missing: in two runs on an H100 the trace lost 1
-    and 6 launches of steps that make 6 on that thread, and none of a
-    tick's."""
-    from torch.profiler import ProfilerActivity, profile
+    warp kernel that its wrapper counted in the call, and no more."""
+    before = []
 
-    before = bt.block_tridiag_solve.launches_by_kernel["warp"], policy.backward_solves
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+    def call():  # the counts at the start of the traced call
+        before[:] = [bt.block_tridiag_solve.launches_by_kernel["warp"]]
         fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(dev_us(e) for e in kernels)
+
+    prof, wall = trace(call, what)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     solve = [e for e in kernels if bt.KERNEL_FUNCTIONS["warp"] in e.key]
+    counted = bt.block_tridiag_solve.launches_by_kernel["warp"] - before[0]
+    seen = sum(e.count for e in solve)
+    busy_us = sum(dev_us(e) for e in kernels)
+    check(kernels and busy_us > 0, f"{what}: the profiler recorded no device time")
+    check(seen == counted, f"{what}: the profiler shows {seen} launches of the warp kernel, "
+                           f"its wrapper counted {counted}")
     # the dense factorizations and solves of torch.linalg (the interior-point
     # path's KKT systems): cuSOLVER/cuBLAS/MAGMA kernels by name
     dense = [e for e in kernels if re.search(r"getrf|getf2|getrs|laswp|pivinfo|displace_pointers|"
@@ -403,17 +483,10 @@ def profiled(bt, fn, what, policy):
                                              e.key, re.I)
              and not any(k in e.key for k in bt.KERNEL_FUNCTIONS.values())]
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
-    counted = bt.block_tridiag_solve.launches_by_kernel["warp"] - before[0]
-    backward = policy.backward_solves - before[1]
-    check(kernels and busy_us > 0, f"{what}: the profiler recorded no device time")
-    seen = sum(e.count for e in solve)
-    check((seen > 0) == (counted > 0) and counted - backward <= seen <= counted,
-          f"{what}: the profiler shows {seen} launches of the warp kernel, its wrapper "
-          f"counted {counted} ({backward} of them the backward's)")
     return {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernel_launches": sum(e.count for e in kernels),
-            "warp_kernel_launches": sum(e.count for e in solve),
+            "warp_kernel_launches": seen,
             "warp_kernel_device_ms": sum(dev_us(e) for e in solve) / 1e3,
             "dense_linalg_launches": sum(e.count for e in dense),
             "dense_linalg_device_ms": sum(dev_us(e) for e in dense) / 1e3,
@@ -436,42 +509,59 @@ def flip_qp_layer_backward(pdipm):
     return lambda: setattr(pdipm, "_pull_back", good)
 
 
-def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, env, batch_np,
-                 loss=None, sensitivity=True, planted=True):
+def policy_in(build_policy, args, env, dev, dtype, obstacles=None):
+    """The policy `args` describe, with its solver (and, for f64, its
+    network) in `dtype` and the args' rho_max (1e5 unless they say)."""
+    rho_max = args.get("rho_max") or 1e5
+    p = build_policy({**args, "dtype": "double" if dtype == torch.float64 else "float32",
+                      "rho_max": rho_max}, env, dev, obstacles=obstacles)
+    p.model.to(dtype)
+    return p
+
+
+def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np, loss=None,
+                 sensitivity=True, planted=True, faults=()):
     """A training step of a checkpoint's configuration (#4, #2 or #3; #5
     with the streaming `loss`; the diff-mpc arm; #1 with the interior-point
-    solve from a fresh `state`): step 0 on the card against the CPU, in f32
-    (the trained configuration) and f64 (tight), with `sensitivity` each
-    beside the card's own move under a perturbation of the start states;
-    with `planted`, the f64 step 0 with the implicit NewtonAL backward's
-    signs flipped; then TRAIN_STEPS steps on the card (the main path) and
-    one profiled step."""
+    solve, or a policy variant, from a fresh `state`): step 0 on the card
+    against the CPU, in f32 (the trained configuration) and f64 (tight),
+    with `sensitivity` each beside the card's own move under a perturbation
+    of the start states; with `planted`, the f64 step 0 with the implicit
+    NewtonAL backward's signs flipped, and so for each of `faults`, (name,
+    plant(policy) -> undo); then TRAIN_STEPS steps on the card (the main
+    path) and one profiled step. For the delta variant, the scales after
+    the f64 step 0 (Adam, then their EMA), card vs CPU."""
     loss = loss or train.loss_fn
 
     def fresh(dev, dtype=torch.float32):
-        p = build_policy(args, env, dev)
-        if dtype == torch.float64:
-            p = DEQMPCPolicy(dataclasses.replace(p.cfg, solver_dtype=dtype), env, dev)
-            p.model.double()
+        p = policy_in(build_policy, args, env, dev, dtype)
         p.model.load_state_dict({k: v.to(dev) for k, v in state.items()})
         return p, train.make_optimizer(p)
 
-    def step0(dev, dtype, rel_noise=0.0):
+    def step0(dev, dtype, rel_noise=0.0, plant=None, scales=False):
         b = dict(batch_np)
         noise = np.random.default_rng(1).normal(size=b["obs"].shape)
         b["obs"] = b["obs"].astype(np.float64) * (1 + rel_noise * noise)
         p, o = fresh(dev, dtype)
-        t = time.perf_counter()
-        res = train.train_step(p, o, train.to_device(b, dev, dtype), loss=loss)
-        return {"loss": float(res["loss"]), "grad_norm": float(res["grad_norm"]),
-                "s": time.perf_counter() - t}
+        undo = plant(p) if plant is not None else None
+        try:
+            t = time.perf_counter()
+            res = train.train_step(p, o, train.to_device(b, dev, dtype), loss=loss)
+        finally:
+            if undo is not None:
+                undo()
+        out = {"loss": float(res["loss"]), "grad_norm": float(res["grad_norm"]),
+               "s": time.perf_counter() - t}
+        if scales and p.is_delta:  # after Adam and the EMA
+            out["scales"] = p.model.scales.detach().cpu().double()
+        return out
 
     def gaps(a, b):
         return {k: rel_gap(a[k], b[k]) for k in ("loss", "grad_norm")}
 
     out = {"cpu_step0": step0("cpu", torch.float32),
-           "cpu_step0_f64": step0("cpu", torch.float64),
-           "card_step0_f64": step0("cuda", torch.float64)}
+           "cpu_step0_f64": step0("cpu", torch.float64, scales=True),
+           "card_step0_f64": step0("cuda", torch.float64, scales=True)}
     out["step0_gap_card_vs_cpu_f64"] = gaps(out["card_step0_f64"], out["cpu_step0_f64"])
     if sensitivity:
         out["card_step0_moved_1e-6"] = step0("cuda", torch.float32, 1e-6)
@@ -486,6 +576,12 @@ def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, 
             undo()
         out["step0_gap_planted_sign_flip_f64"] = gaps(out["card_step0_f64_planted_sign_flip"],
                                                       out["cpu_step0_f64"])
+    for name, plant in faults:
+        out.setdefault("planted_f64", {})[name] = gaps(step0("cuda", torch.float64, plant=plant),
+                                                       out["cpu_step0_f64"])
+    if "scales" in out["cpu_step0_f64"]:
+        out["delta_scales_after_step0_f64_max_abs_gap"] = float(
+            (out["card_step0_f64"].pop("scales") - out["cpu_step0_f64"].pop("scales")).abs().max())
 
     policy, opt = fresh("cuda")
     batch = train.to_device(batch_np, "cuda")
@@ -493,8 +589,10 @@ def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, 
     before = policy_counts(policy)
     reset_counts(bt)
     steps = []
+    newton = policy.newton_solver
     for _ in range(TRAIN_STEPS):
         c0, by0 = policy_counts(policy), dict(bt.block_tridiag_solve.launches_by_kernel)
+        z0, n0 = float(newton.backward_zeroed), newton.backward_samples
         timings = {}
         t = time.perf_counter()
         res = train.train_step(policy, opt, batch, timings=timings, loss=loss)
@@ -502,6 +600,8 @@ def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, 
         c1 = policy_counts(policy)
         steps.append({"loss": float(res["loss"]), "grad_norm": float(res["grad_norm"]),
                       "step_s": step_s, **timings,
+                      "zeroed_share": (float(newton.backward_zeroed) - z0)
+                      / max(newton.backward_samples - n0, 1),
                       **{k: c1[k] - c0[k] for k in c1},
                       "launches_by_kernel": {k: bt.block_tridiag_solve.launches_by_kernel[k] - by0[k]
                                              for k in bt.KERNELS}})
@@ -522,23 +622,25 @@ def train_config(bt, train, build_policy, DEQMPCPolicy, newton_al, state, args, 
 
     # one more step under the profiler: the kernel's device time per step
     out["profiled_step"] = profiled(bt, lambda: train.train_step(policy, opt, batch, loss=loss),
-                                    f"a profiled {args['env']} training step", policy)
+                                    f"a profiled {args['env']} training step")
     return out
 
 
-def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64)):
+def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64), backward=None):
     """The checks of a training phase: finite steps, one implicit backward
     per round of each forward (for a diff-mpc step, the final solve's one;
     for the interior-point path, one qp_layer backward a round and no
-    block-tridiagonal solve), every solve through the warp kernel, step 0
-    card vs CPU within STEP0_RTOL in `dtypes`, the planted fault (where
-    the phase planted one) rejected, and the profiled step's launches."""
+    block-tridiagonal solve; `backward` a step where the phase says),
+    every solve through the warp kernel, step 0 card vs CPU within
+    STEP0_RTOL in `dtypes`, the planted faults (where the phase planted
+    them) rejected, and the profiled step's launches."""
     mode = tr["mode"]
     ip = mode["solver_type"] == "ip"
     # backward solves a step: one a round with a solve in every round, one
     # for a final solve
-    backward = 0 if ip else (tr["deq_iter"] * forwards if mode["qp_solve"] else
-                             int(mode["lastqp_solve"]))
+    if backward is None:
+        backward = 0 if ip else (tr["deq_iter"] * forwards if mode["qp_solve"] else
+                                 int(mode["lastqp_solve"]))
     for i, s_ in enumerate(tr["steps"]):
         check(np.isfinite(s_["loss"]) and np.isfinite(s_["grad_norm"]),
               f"{what} step {i}: loss {s_['loss']}, grad norm {s_['grad_norm']}")
@@ -567,6 +669,9 @@ def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64)):
     planted = tr.get("step0_gap_planted_sign_flip_f64")
     check(planted is None or planted["grad_norm"] > STEP0_RTOL[torch.float64]["grad_norm"],
           f"{what}: the f64 step-0 check passed a planted fault: {planted}")
+    for name, gap in tr.get("planted_f64", {}).items():
+        check(any(gap[k] > lim for k, lim in STEP0_RTOL[torch.float64].items()),
+              f"{what}: the f64 step-0 check passed a planted fault ({name}): {gap}")
 
 
 def train_pendulum(bt, train, build_policy, env, batch_np):
@@ -652,8 +757,9 @@ def serve_streaming(bt, tridiag, newton_al, DEQMPCPolicy, PolicyCarry, build_pol
                 obs, _ = env.step(obs, us[-1].to("cpu", torch.float64))
         return us, status
 
-    def unshifted(z, x, u, sol_state):  # the planted fault
-        return PolicyCarry(z=z.detach(), x=x.detach(), u=u.detach(), solver=sol_state)
+    def unshifted(aux, sol_state):  # the planted fault
+        return PolicyCarry(z=aux["z"].detach(), x=aux["x"].detach(), u=aux["u"].detach(),
+                           solver=sol_state)
 
     with torch.inference_mode():
         for dtype in (torch.float32, torch.float64):
@@ -786,17 +892,29 @@ def ip_full_step(tracking_mpc):
     return lambda: ip.__dict__.pop("_line_search", None)
 
 
-def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None):
+def zero_obstacle_features(model):
+    """The aware network's planted fault: its obstacle features zeroed, the
+    blind input with the aware weights. Returns the undo."""
+    from deqmpc_tpu_torch.models.deq_layer import OBSTACLE_N_SEL
+
+    model._obstacle_feats = lambda x: torch.zeros(x.shape[:2] + (4 * OBSTACLE_N_SEL,),
+                                                  dtype=x.dtype, device=x.device)
+    return lambda: model.__dict__.pop("_obstacle_feats", None)
+
+
+def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None, ticks=NEW_TICKS,
+                 o_transposed_dtype=torch.float32):
     """A checkpoint of configs #2, #3 or #3b, of the diff-mpc arms, or
     `pendulum_deqmpc` with the interior-point solve (`args_update`), served:
     tick 0 of NEW_EPISODES start states on the card against the same
     forward on the CPU, f32 and f64, with the jittered retries of both and
-    the planted faults (f32: O transposed in the solve, with the AL solve;
+    the planted faults (`o_transposed_dtype`: O transposed in the solve, with the AL solve;
     f64: the final solve cut to 2 AL iterations, with a final solve; f64:
-    the SQP line search's step fixed at 1, with the interior-point solve);
+    the SQP line search's step fixed at 1, with the interior-point solve;
+    f64: the obstacle features zeroed, with the obstacle-aware network);
     every Newton
     system of the card's f32 tick 0 against the plain solve; then
-    NEW_EPISODES x NEW_TICKS closed-loop ticks through `eval_policy` with
+    NEW_EPISODES x `ticks` closed-loop ticks through `eval_policy` with
     the counts set to 0 just before, per tick its Newton steps and retries
     (and dense interior-point solves), and one more tick under the
     profiler. With obstacles, the first OBSTACLE_STARTS tick-0 states start
@@ -832,10 +950,8 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None):
         for dtype in (torch.float32, torch.float64):
             pols = {}
             for dev in ("cuda", "cpu"):
-                pols[dev] = m.DEQMPCPolicy(dataclasses.replace(policy.cfg, solver_dtype=dtype),
-                                           env, dev, obstacles=obstacles)
+                pols[dev] = policy_in(m.build_policy, args, env, dev, dtype, obstacles)
                 pols[dev].model.load_state_dict(state)
-                pols[dev].model.to(dtype)
             rows = record_obstacle_rows(pols["cuda"], m.obstacle_residuals)
             newton = pols["cuda"].tracking_mpc.ctrl.newton
             if dtype == torch.float32:  # keep every Newton system the card solves
@@ -858,7 +974,7 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None):
                   f"{json.dumps(out['retries'][str(dtype)])}, active obstacle rows "
                   f"{json.dumps(active_share(rows))}", flush=True)
             faults = []
-            if dtype == torch.float32 and cfg.solver_type == "al":
+            if dtype == o_transposed_dtype and cfg.solver_type == "al":
                 def o_transposed():
                     good_solve = newton_al.block_tridiag_solve
                     newton_al.block_tridiag_solve = lambda D, O, b: good_solve(
@@ -871,6 +987,9 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None):
             if dtype == torch.float64 and cfg.solver_type == "ip":
                 faults.append(("ip_line_search_full_step",
                                lambda: ip_full_step(pols["cuda"].tracking_mpc)))
+            if dtype == torch.float64 and cfg.obstacle_net_input:
+                faults.append(("obstacle_features_zeroed",
+                               lambda: zero_obstacle_features(pols["cuda"].model)))
             for name, plant in faults:
                 undo = plant()
                 try:
@@ -900,18 +1019,17 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None):
     torch.cuda.synchronize()
     before = policy_counts(policy)
     reset_counts(bt)
-    res = m.eval_policy(args, env, policy, n_episodes=NEW_EPISODES, ep_len=NEW_TICKS, seed=0,
+    res = m.eval_policy(args, env, policy, n_episodes=NEW_EPISODES, ep_len=ticks, seed=0,
                         device="cuda")
     res["counts"] = path_counts(bt, policy, before)
-    res["launches_per_tick"] = res["counts"]["launches"] / NEW_TICKS
-    res["ip_kkt_solves_per_tick"] = res["counts"]["ip_kkt_solves"] / NEW_TICKS
+    res["launches_per_tick"] = res["counts"]["launches"] / ticks
+    res["ip_kkt_solves_per_tick"] = res["counts"]["ip_kkt_solves"] / ticks
     res["per_tick"] = per_tick
     res["active_obstacle_share"] = active_share(rows)
     policy.forward = forward
     x = env.reset(torch.Generator().manual_seed(1), NEW_EPISODES, device="cuda")
     with torch.inference_mode():
-        res["profiled_tick"] = profiled(bt, lambda: policy.forward(x), f"{ckpt} profiled tick",
-                                       policy)
+        res["profiled_tick"] = profiled(bt, lambda: policy.forward(x), f"{ckpt} profiled tick")
     out["closed_loop"] = res
     return out
 
@@ -1064,12 +1182,12 @@ class Ctx(types.SimpleNamespace):
         c.env = make_env(c.args["env"])
         return c
 
-    def expert_batch(self, env_name, env, seed, horizon, teacher="mpc"):
-        """A seeded bsz-TRAIN_BSZ batch of expert windows through the port's
-        pipeline."""
+    def expert_batch(self, env_name, env, seed, horizon, teacher="mpc", H=1):
+        """A seeded bsz-TRAIN_BSZ batch of expert windows (H-step histories)
+        through the port's pipeline."""
         gt, _ = self.train.split_episodes(self.data.get_gt_data(env, teacher))
         return self.train.preprocess_batch(env_name, env.nx, self.data.sample_trajectory(
-            gt, TRAIN_BSZ, 1, horizon, np.random.default_rng(seed)))
+            gt, TRAIN_BSZ, H, horizon, np.random.default_rng(seed)))
 
 
 def phase_serve_rexquad(c):
@@ -1173,7 +1291,7 @@ def phase_serve_rexquad(c):
 def phase_train_rexquad(c):
     """Config #4 trained from its checkpoint."""
     phase("train: config #4", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
-    tr4 = train_config(c.bt, c.train, c.build_policy, c.DEQMPCPolicy, c.newton_al, c.state,
+    tr4 = train_config(c.bt, c.train, c.build_policy, c.newton_al, c.state,
                        c.args, c.env, c.expert_batch(c.args["env"], c.env, 0, c.args["T"]))
     for s_ in tr4["steps"]:
         print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
@@ -1242,7 +1360,7 @@ def phase_train_streaming(c):
     state5, args5 = c.load_checkpoint(STREAMING_CKPT, "cuda")
     L = args5["streaming_steps"]
     phase("train: config #5 (streaming)", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, streaming_steps=L)
-    tr5 = train_config(c.bt, c.train, c.build_policy, c.DEQMPCPolicy, c.newton_al, state5, args5,
+    tr5 = train_config(c.bt, c.train, c.build_policy, c.newton_al, state5, args5,
                        c.env, c.expert_batch(args5["env"], c.env, 2, args5["T"] + L),
                        loss=c.train.make_loss_fn(L), sensitivity=False)
     for s_ in tr5["steps"]:
@@ -1275,7 +1393,7 @@ def phase_train_new(ckpt, teacher):
         state, args = c.load_checkpoint(ckpt, "cuda")
         env = c.make_env(args["env"])
         phase(f"train: {ckpt}", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, teacher=teacher)
-        tr = train_config(c.bt, c.train, c.build_policy, c.DEQMPCPolicy, c.newton_al, state, args,
+        tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, state, args,
                           env, c.expert_batch(args["env"], env, 3, args["T"], teacher),
                           sensitivity=False)
         for s_ in tr["steps"]:
@@ -1362,7 +1480,7 @@ def phase_train_ip(c):
     state = c.build_policy(args, env, "cpu").init(0).model.state_dict()
     batch_np = c.expert_batch("pendulum", env, 4, args["T"])
     phase("train: config #1, interior-point solve", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
-    tr = train_config(c.bt, c.train, c.build_policy, c.DEQMPCPolicy, c.newton_al, state, args,
+    tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, state, args,
                       env, batch_np, sensitivity=False, planted=False)
     for s_ in tr["steps"]:
         print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
@@ -1383,6 +1501,190 @@ def phase_train_ip(c):
     return tr, tr["counts"]
 
 
+class NoPlusOne:
+    """The Q variant's planted fault: the tracking cost scaled by Q * q in
+    place of Q * (q + 1)."""
+
+    def __init__(self, tm):
+        self.tm = tm
+
+    def __call__(self, *a, q_scaling=None, **kw):
+        return self.tm(*a, q_scaling=None if q_scaling is None else q_scaling - 1, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.tm, name)
+
+
+def plant_product_rule(p):
+    """The delta's planted fault: `scale_multiply_st` by the product rule."""
+    from deqmpc_tpu_torch.models import deq_layer_variants as dv
+
+    good = dv.scale_multiply_st
+    dv.scale_multiply_st = lambda x, s_: x * s_
+    return lambda: setattr(dv, "scale_multiply_st", good)
+
+
+def plant_no_plus_one(p):
+    """The Q variant's planted fault: the cost scaled without its +1."""
+    tm = p.tracking_mpc
+    p.tracking_mpc = NoPlusOne(tm)
+    return lambda: setattr(p, "tracking_mpc", tm)
+
+
+def plant_x0_row(p):
+    """estpred's planted fault: the estimator with the initial-state row and
+    the control box (`state_estimator=False`)."""
+    from deqmpc_tpu_torch.policies import TrackingMPC
+
+    est, cfg = p.state_estimator, p.cfg
+    p.state_estimator = TrackingMPC(p.env, p.H, al_iter=cfg.al_iter, state_estimator=False,
+                                    dtype=cfg.solver_dtype, rho_max=cfg.rho_max, device=p.device)
+    return lambda: setattr(p, "state_estimator", est)
+
+
+# the planted faults of a variant's f64 step 0, which STEP0_RTOL must reject;
+# estpred's is held by its estimates (`estimate_gaps`)
+VARIANT_FAULTS = {"delta": [("scale_multiply_product_rule", plant_product_rule)],
+                  "q": [("q_scaling_without_plus_one", plant_no_plus_one)]}
+
+
+def estimate_gaps(c, args, env, state, batch_np):
+    """estpred's f64 forward on the step-0 batch, card vs CPU: every round's
+    state estimates after the MHE estimator, per sample the largest gap,
+    held by the f64 ACTION_TOL; and the same with the estimator given the
+    initial-state row on the card (a planted fault it must reject)."""
+    def estimates(dev, plant=None):
+        p = policy_in(c.build_policy, args, env, dev, torch.float64)
+        p.model.load_state_dict({k: v.to(dev) for k, v in state.items()})
+        undo = plant(p) if plant is not None else None
+        b = c.train.to_device(batch_np, dev, torch.float64)
+        try:
+            with torch.inference_mode():
+                out = p.forward(b["obs"], b["obs_action"])
+        finally:
+            if undo is not None:
+                undo()
+        return torch.cat([post.flatten(1) for _, post in out["nominal_x_ests"]], dim=1)
+
+    cpu = estimates("cpu")
+    return {"gap_card_vs_cpu_f64": action_gap(estimates("cuda"), cpu),
+            "planted_estimator_with_x0_row": action_gap(estimates("cuda", plant_x0_row), cpu)}
+
+
+def mhe_systems(c, policy, batch_np):
+    """One f32 forward of estpred on the card with every solve of the
+    estimator's shape kept: the estimator's Newton steps and jittered
+    retries, the share of its samples whose first solve came back NaN, and
+    its systems (first solves and retries) held against the plain solve."""
+    from deqmpc_tpu_torch.solvers.newton_al import NewtonCounts
+
+    est = policy.state_estimator.ctrl.newton
+    shared, est.counts = est.counts, NewtonCounts()
+    kept, solve = [], c.newton_al.block_tridiag_solve
+
+    def keep(D, O, b):
+        x = solve(D, O, b)
+        if D.shape[1] == VARIANT_H:
+            kept.append((b.clone(), D.clone(), O.clone(), bool(torch.isnan(x).any())))
+        return x
+
+    c.newton_al.block_tridiag_solve = keep
+    b = c.train.to_device(batch_np, "cuda")
+    try:
+        with torch.inference_mode():
+            policy.forward(b["obs"], b["obs_action"])
+    finally:
+        c.newton_al.block_tridiag_solve = solve
+        counts, est.counts = est.counts, shared
+    first = [k for k in kept[:1]] + [k for prev, k in zip(kept, kept[1:]) if not prev[3]]
+    nan_samples = sum(int(torch.isnan(c.tridiag.block_tridiag_solve(D, O, g)).flatten(1)
+                          .any(dim=1).sum()) for g, D, O, _ in first)
+    out = {"newton_steps": counts.steps, "retries": counts.retries, "solves": len(kept),
+           "first_solve_nan_share": nan_samples / max(sum(D.shape[0] for _, D, _, _ in first), 1)}
+    out["kernel_vs_plain"] = check_served_systems(c.bt, c.tridiag,
+                                                  [k[:3] for k in kept], torch.float32)
+    return out
+
+
+def phase_train_variant(name):
+    """A policy variant trained on config #1 (pendulum, full width, bsz
+    TRAIN_BSZ) from a seeded fresh init, as config #4 (`train_config`):
+    step 0 card vs CPU (f64 loss and gradient norm within STEP0_RTOL, the
+    sign flip and the variant's own planted fault rejected; the delta's
+    scales after the step), TRAIN_STEPS steps, all warp, one profiled step;
+    for estpred also the estimator's systems (`mhe_systems`)."""
+    def run(c):
+        args = vars(c.train.parse_args(["--env", "pendulum", "--T", "5", "--deq_iter", "6",
+                                        "--hdim", "256", "--bsz", str(TRAIN_BSZ),
+                                        *VARIANT_FLAGS[name]]))
+        env = c.make_env("pendulum")
+        state = c.build_policy(args, env, "cpu").init(5).model.state_dict()
+        batch_np = c.expert_batch("pendulum", env, 5, args["T"], H=args["H"])
+        phase(f"train: variant {name}", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, H=args["H"])
+        tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, state,
+                          args, env, batch_np, sensitivity=False,
+                          faults=VARIANT_FAULTS.get(name, ()))
+        tr["variant"] = type(c.build_policy(args, env, "cpu")).__name__
+        if name == "mem":  # the --addmem alias built what --policy_variant mem builds
+            named = c.build_policy({**args, "addmem": False, "policy_variant": "mem"}, env,
+                                   "cpu")
+            check(tr["variant"] == type(named).__name__ == "DEQMPCPolicyMem",
+                  f"--addmem built {tr['variant']}")
+        if name == "estpred":
+            pol = policy_in(c.build_policy, args, env, "cuda", torch.float32)
+            pol.model.load_state_dict({k: v.cuda() for k, v in state.items()})
+            tr["mhe"] = mhe_systems(c, pol, batch_np)
+            tr["estimates"] = estimate_gaps(c, args, env, state, batch_np)
+        for s_ in tr["steps"]:
+            print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+        phase(f"train: variant {name} done", **{k: v for k, v in tr.items() if k != "steps"})
+        # estpred: the estimator's backward too, in every round but the last
+        n = tr["deq_iter"]
+        check_train(tr, f"variant {name} training", backward=2 * n - 1 if name == "estpred"
+                    else n)
+        check(len(tr.get("planted_f64", {})) == len(VARIANT_FAULTS.get(name, ())),
+              f"variant {name}: planted faults {tr.get('planted_f64')}")
+        if name == "estpred":
+            est = tr["estimates"]
+            check(gap_within(est["gap_card_vs_cpu_f64"], torch.float64)
+                  and not gap_within(est["planted_estimator_with_x0_row"], torch.float64),
+                  f"estpred's estimates (f64), card vs CPU, and with the x0 row planted: {est}")
+        if name == "delta":
+            gap = tr["delta_scales_after_step0_f64_max_abs_gap"]
+            check(gap <= DELTA_SCALES_TOL,
+                  f"delta scales after step 0 (f64), card vs CPU: {gap} > {DELTA_SCALES_TOL}")
+        return tr, tr["counts"]
+    return run
+
+
+def phase_serve_variant(name):
+    """A variant that JAX's eval serves, trained for one step by the train
+    CLI on the card, which writes its port checkpoint; that checkpoint
+    served as configs #2-#3b are (`serve_config`), VARIANT_TICKS ticks."""
+    def run(c):
+        import tempfile
+
+        phase(f"serve: variant {name}", episodes=NEW_EPISODES, ticks=VARIANT_TICKS)
+        with tempfile.TemporaryDirectory(prefix="smoke_ckpt_", dir=".") as tmp:
+            argv = ["--env", "pendulum", "--T", "5", "--deq_iter", "6", "--hdim", "256",
+                    "--bsz", "32", "--max_train_steps", "1", "--val_every", "1", "--save",
+                    "--name", name, "--models_dir", tmp, *VARIANT_FLAGS[name]]
+            trained = c.train.main(argv)
+            check(trained["checkpoint"] and trained["policy_variant"] == name,
+                  f"variant {name}: the train CLI wrote {trained['checkpoint']}")
+            # O transposed held by the f64 check: on these policies' pendulum
+            # systems it moved the f32 median by 0.046 (hdim 32), under f32's 0.05
+            sv = serve_config(f"{tmp}/{name}", c.bt, c.tridiag, c.newton_al, c,
+                              ticks=VARIANT_TICKS, o_transposed_dtype=torch.float64)
+        cl = sv["closed_loop"]
+        for row in cl["per_tick"]:
+            print(f"[chip_smoke]   tick {json.dumps(row)}", flush=True)
+        phase(f"serve: variant {name} done", **{k: v for k, v in cl.items() if k != "per_tick"})
+        check_served(sv, f"variant {name}")
+        return sv, cl["counts"]
+    return run
+
+
 PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rexquad,
           "train_pendulum": phase_train_pendulum, "serve_pendulum": phase_serve_pendulum,
           "serve_streaming": phase_serve_streaming, "train_streaming": phase_train_streaming,
@@ -1395,18 +1697,27 @@ PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rex
           "serve_flying_diffmpc": phase_serve_new(FLYING_DIFF_CKPT),
           "train_diffmpc": phase_train_new(FLYING_DIFF_CKPT, "mpc"),
           "serve_ip": phase_serve_new(PENDULUM_CKPT, {"solver_type": "ip"}),
-          "train_ip": phase_train_ip}
+          "train_ip": phase_train_ip,
+          "serve_flying_aware": phase_serve_new(AWARE_CKPT),
+          **{f"train_variants_{n}": phase_train_variant(n) for n in VARIANT_FLAGS},
+          **{f"serve_variants_{n}": phase_serve_variant(n) for n in SERVED_VARIANTS}}
 # The phases run in LANES worker processes at once, each lane's in turn: a
 # phase keeps the card idle over 95% of its time (its host dispatches the
 # ops one by one), so three host threads share the card with little
 # interference; the kernel timings and bench_streaming run alone. Lanes are
-# balanced on the phases' times when they ran in one process (PERF.md).
+# balanced on the phases' times when they ran in one process (PERF.md); the
+# last two (the policy variants and the aware checkpoint) took 280 s and
+# 250 s running side by side.
 LANES = (("serve_flying_obstacles", "train_streaming"),
          ("serve_flying", "serve_streaming", "train_rexquad"),
          ("serve_cartpole", "train_flying", "train_cartpole", "serve_rexquad", "train_pendulum",
           "serve_pendulum"),
          ("serve_flying_diffmpc", "train_diffmpc", "serve_pendulum_diffmpc", "train_ip",
-          "serve_ip"))
+          "serve_ip"),
+         ("serve_flying_aware", "train_variants_mem", "train_variants_delta", "train_variants_q",
+          "serve_variants_mem", "serve_variants_delta"),
+         ("train_variants_history", "train_variants_estpred", "train_variants_feedback",
+          "train_variants_history_joint", "serve_variants_feedback", "serve_variants_q"))
 LANE_THREADS = 2  # torch's CPU threads per lane (the CPU references)
 
 
@@ -1492,7 +1803,7 @@ def main(argv=None) -> int:
     for row in timings:
         print(f"[chip_smoke]   timing {json.dumps(row)}", flush=True)
 
-    # -- 4-10, 12-21. the paths, in LANES worker processes ------------------------
+    # -- 4-10, 12-24. the paths, in LANES worker processes ------------------------
     lanes = [[n for n in lane if selected is None or n in selected] for lane in LANES]
     lanes = [lane for lane in lanes if lane]
     phase("paths", lanes=lanes)

@@ -1,12 +1,15 @@
-"""Building blocks of the DEQ trunk (the "gcn" trunk).
+"""Building blocks of the DEQ trunks ("gcn" and "mlp").
 
-Port of `UnfoldConv`, `ConvInput`, `ConvCell` and `ConvOutput`
-(`deqmpc_tpu/models/blocks.py:22-58,95-203`). Layout is feature-last
+Port of `UnfoldConv`, `get_act`, `MLPCell`, `ConvCell`, `MLPInput`,
+`ConvInput` (with its extra streams), `MLPOutput`, `ConvOutput` and
+`GatedResidual` (`deqmpc_tpu/models/blocks.py:22-227`). Layout is feature-last
 (B, L, C) with convolutions over the horizon axis L, as in the JAX
 package. Submodules and parameters carry the flax names (`Dense_0`,
 `GroupNorm_1`, `kernel`, `scale`, ...) so the checkpoint maps onto
 them one to one; `utils/checkpoint.py` transposes Dense kernels for
-`nn.Linear`. The norms follow flax: eps 1e-6 and the one-pass variance
+`nn.Linear`. Every flax `nn.Conv` of the JAX package (SAME padding,
+`deq_layer_variants.py`) is an `UnfoldConv` here: the same kernel layout
+and the same sum. The norms follow flax: eps 1e-6 and the one-pass variance
 E[x^2] - E[x]^2 clipped at 0.
 """
 from __future__ import annotations
@@ -80,30 +83,82 @@ class GroupNorm(nn.Module):
         return y * (mul * self.scale) + self.bias
 
 
+def get_act(name: str):
+    """relu, or mish x * tanh(softplus(x)) (`blocks.py:61-68`); softplus as
+    JAX's, logaddexp(x, 0), with no threshold."""
+    if name == "relu":
+        return torch.relu
+    if name == "mish":
+        return lambda x: x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))
+    raise ValueError(name)
+
+
+class MLPInput(nn.Module):
+    """inp = LayerNorm(Dense(x_flat))."""
+
+    def __init__(self, in_dim: int, hdim: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_dim, hdim)
+        self.LayerNorm_0 = LayerNorm(hdim)
+
+    def forward(self, x_flat):
+        return self.LayerNorm_0(self.Dense_0(x_flat))
+
+
+class MLPCell(nn.Module):
+    """mlp DEQ cell on (B, hdim):
+    z' = LN_1(relu(z + LN_2(x_inj + Dense_1(LN_0(relu(Dense_0(z))))))),
+    flax naming the outer norm before the inner one."""
+
+    def __init__(self, hdim: int, expand: int = 4):
+        super().__init__()
+        self.Dense_0 = nn.Linear(hdim, hdim * expand)
+        self.LayerNorm_0 = LayerNorm(hdim * expand)
+        self.LayerNorm_1 = LayerNorm(hdim)
+        self.LayerNorm_2 = LayerNorm(hdim)
+        self.Dense_1 = nn.Linear(hdim * expand, hdim)
+
+    def forward(self, x_inj, z):
+        y = self.LayerNorm_0(torch.relu(self.Dense_0(z)))
+        return self.LayerNorm_1(torch.relu(z + self.LayerNorm_2(x_inj + self.Dense_1(y))))
+
+
+class MLPOutput(nn.Module):
+    """out = Dense(z)."""
+
+    def __init__(self, hdim: int, out_dim: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(hdim, out_dim)
+
+    def forward(self, z):
+        return self.Dense_0(z)
+
+
 class ConvInput(nn.Module):
     """gcn input encoder: per-knot embedding of the trajectory, the x0
-    embedding broadcast over knots and a learned time embedding, fused by
-    two convs and a GroupNorm."""
+    embedding broadcast over knots and a learned time embedding, then the
+    `extra` streams (`extra_dim` channels in all: the memory, the nearest-
+    obstacle features), fused by two convs and a GroupNorm."""
 
     def __init__(self, nx: int, obs_dim: int, hdim: int, horizon: int,
-                 kernel_width: int = 3, num_groups: int = 4):
+                 kernel_width: int = 3, num_groups: int = 4, extra_dim: int = 0):
         super().__init__()
         self.Dense_0 = nn.Linear(nx, hdim)
         self.LayerNorm_0 = LayerNorm(hdim)
         self.Dense_1 = nn.Linear(obs_dim, hdim)
         self.LayerNorm_1 = LayerNorm(hdim)
         self.time_emb = nn.Parameter(torch.randn(horizon, hdim))
-        self.Conv_0 = UnfoldConv(3 * hdim, 4 * hdim, kernel_width)
+        self.Conv_0 = UnfoldConv(3 * hdim + extra_dim, 4 * hdim, kernel_width)
         self.Conv_1 = UnfoldConv(4 * hdim, hdim, kernel_width)
         self.GroupNorm_0 = GroupNorm(hdim, num_groups)
 
-    def forward(self, x_nodes, obs):
-        # x_nodes: (B, T-1, nx); obs: (B, obs_dim)
+    def forward(self, x_nodes, obs, extra=()):
+        # x_nodes: (B, T-1, nx); obs: (B, obs_dim); extra: (B, T-1, c) each
         node_emb = torch.relu(self.LayerNorm_0(self.Dense_0(x_nodes)))
         x0_emb = torch.relu(self.LayerNorm_1(self.Dense_1(obs)))
         x0_emb = x0_emb[:, None].expand(-1, x_nodes.shape[1], -1)
         t_emb = self.time_emb[None].expand_as(x0_emb)
-        inp = torch.cat([node_emb, x0_emb, t_emb], dim=-1)
+        inp = torch.cat([node_emb, x0_emb, t_emb, *extra], dim=-1)
         inp = torch.relu(self.Conv_0(inp))
         return self.GroupNorm_0(self.Conv_1(inp))
 
@@ -139,3 +194,35 @@ class ConvOutput(nn.Module):
 
     def forward(self, z):
         return self.Conv_1(torch.relu(self.GroupNorm_0(self.Conv_0(z))))
+
+
+class GatedResidual(nn.Module):
+    """The memory update block. As in the JAX package (and the reference,
+    which computes the gate and the residual and returns z), `bypass`
+    returns z and holds no parameters; without it
+    mem' = mem * (1 - gate) + res * gate over [mem, z], the gate
+    sigmoid(LN_1(Dense_1(relu(LN_0(Dense_0(.)))))) and the residual the
+    same with layers 2 and 3 (norms with eps 1e-3), named as flax names
+    the layers of its two `Sequential`s."""
+
+    def __init__(self, dim: int, bypass: bool = True):
+        super().__init__()
+        self.bypass = bypass
+        if bypass:
+            return
+        for i in (0, 2):
+            setattr(self, f"Dense_{i}", nn.Linear(2 * dim, 2 * dim))
+            setattr(self, f"LayerNorm_{i}", LayerNorm(2 * dim, eps=1e-3))
+            setattr(self, f"Dense_{i + 1}", nn.Linear(2 * dim, dim))
+            setattr(self, f"LayerNorm_{i + 1}", LayerNorm(dim, eps=1e-3))
+
+    def _branch(self, i, mz):
+        h = torch.relu(getattr(self, f"LayerNorm_{i}")(getattr(self, f"Dense_{i}")(mz)))
+        return getattr(self, f"LayerNorm_{i + 1}")(getattr(self, f"Dense_{i + 1}")(h))
+
+    def forward(self, mem, z):
+        if self.bypass:
+            return z
+        mz = torch.cat([mem, z], dim=-1)
+        gate = torch.sigmoid(self._branch(0, mz))
+        return mem * (1 - gate) + self._branch(2, mz) * gate

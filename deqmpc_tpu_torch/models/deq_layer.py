@@ -1,4 +1,4 @@
-"""DEQ layer: the fixed-point trajectory-proposal network (gcn trunk).
+"""DEQ layer: the fixed-point trajectory-proposal network.
 
 Port of `DEQLayerConfig`, `DEQLayer` and `FFDNetwork`
 (`deqmpc_tpu/models/deq_layer.py:80-311`): the input encoder embeds the
@@ -6,7 +6,17 @@ observation and the carried trajectory, `_fixed_point` runs Anderson on
 the cell and then applies the cell three more times (or, with
 `fp_type="single"`, the feed-forward `FFDNetwork` of deq-mpc-nn, applies
 it once to the carried z, with its gradient), and `_decode` turns the
-(T-1) x nx head output into the reference trajectory.
+(T-1) x nx head output into the reference trajectory. Both trunks are
+here: "gcn" (convolutions over the horizon, z (B, T-1, hdim)) and "mlp"
+(a flat hidden state, z (B, hdim), the input the flattened trajectory).
+
+Obstacle-aware input (`deq_layer.py:168-191`): with `obstacle_centers`
+(the env's field, (N, 3)), each knot of the carried trajectory adds the
+offsets to its OBSTACLE_N_SEL nearest spheres and their clearances
+(distance - radius) as input channels: an extra stream of the gcn
+encoder, more flat inputs of the mlp one. Nearest first, a tie going to
+the lower index, as `lax.top_k` orders them; the offsets and clearances
+are clipped to +-OBSTACLE_RANGE after the clearance is taken.
 
 Gradient ("phantom gradient", `deq_layer.py:254-272`): Anderson runs
 under `torch.no_grad()` from a detached z, its result is detached, and
@@ -16,17 +26,24 @@ implicit differentiation, and no gradient reaches the incoming z.
 Decode convention (`deq_layer.py:274-285`): positions integrate from the
 current state (x_ref_pos = x0_pos + dq*dt), velocities are direct
 predictions, and the observation is prepended as knot 0.
+
+`step(obs, aux)` is one round of the policy loop, as the JAX layer's
+`__call__`: `aux` carries "x", "u", "z" and "iter" (and a variant's own
+streams) in, and the round's back out. The base layer keeps `iter_emb`
+in its parameters and reads none of it (`deq_layer.py:152-160`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..solvers.fp import anderson
-from .blocks import ConvCell, ConvInput, ConvOutput, GroupNorm, LayerNorm, UnfoldConv
+from .blocks import (ConvCell, ConvInput, ConvOutput, GroupNorm, LayerNorm, MLPCell, MLPInput,
+                     MLPOutput, UnfoldConv)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +54,7 @@ class DEQLayerConfig:
     T: int
     dt: float
     hdim: int = 128
+    layer_type: str = "gcn"  # or "mlp"
     deq_iter: int = 6
     fp_m: int = 5
     fp_max_steps: int = 10
@@ -44,25 +62,50 @@ class DEQLayerConfig:
     deq_expand: int = 4
     num_groups: int = 4
     fp_type: str = "anderson"  # or "single": one cell application
+    # the obstacle-aware input: the field's centers (N, 3), or None
+    obstacle_centers: Any = None
+    obstacle_radius: float = 0.0
+
+
+# the obstacle-aware input's spheres per knot (the solver's rows select as
+# many) and the clip of its offsets and clearances (`deq_layer.py:110-111`)
+OBSTACLE_N_SEL = 4
+OBSTACLE_RANGE = 5.0
 
 
 class DEQLayer(nn.Module):
-    """Base DEQ layer with the gcn trunk and Anderson: state-prediction
-    output (deq_out_type=1)."""
+    """Base DEQ layer: state-prediction output (deq_out_type=1)."""
 
     def __init__(self, cfg: DEQLayerConfig):
         super().__init__()
         self.cfg = cfg
-        c = cfg
-        self.input = ConvInput(nx=c.nx, obs_dim=c.nx, hdim=c.hdim, horizon=c.T - 1,
-                               kernel_width=c.kernel_width, num_groups=c.num_groups)
-        self.cell = ConvCell(hdim=c.hdim, expand=c.deq_expand,
-                             kernel_width=c.kernel_width, num_groups=c.num_groups)
-        self.out = ConvOutput(out_dim=c.nx, hdim=c.hdim, kernel_width=c.kernel_width,
-                              num_groups=c.num_groups)
-        # per-iteration embedding: in the checkpoint, unused by the base
-        # forward exactly as in the JAX package (`deq_layer.py:154-163`)
-        self.iter_emb = nn.Parameter(torch.zeros(c.deq_iter, c.T - 1, c.hdim))
+        if cfg.obstacle_centers is not None:
+            # not a parameter: outside the state dict, moved with the module
+            self.register_buffer("obstacle_centers", torch.as_tensor(
+                np.asarray(cfg.obstacle_centers), dtype=torch.float64), persistent=False)
+        self._build()
+
+    def _build(self):
+        c = self.cfg
+        n_feat = 4 * OBSTACLE_N_SEL if c.obstacle_centers is not None else 0
+        if c.layer_type == "mlp":
+            self.input = MLPInput(c.T * c.nx + (c.T - 1) * n_feat, c.hdim)
+            self.cell = MLPCell(c.hdim, c.deq_expand)
+            self.out = MLPOutput(c.hdim, c.nx * (c.T - 1))
+            self.iter_emb = nn.Parameter(torch.zeros(c.deq_iter, c.hdim))
+        elif c.layer_type == "gcn":
+            self.input = ConvInput(nx=c.nx, obs_dim=c.nx, hdim=c.hdim, horizon=c.T - 1,
+                                   kernel_width=c.kernel_width, num_groups=c.num_groups,
+                                   extra_dim=n_feat)
+            self.cell = ConvCell(hdim=c.hdim, expand=c.deq_expand,
+                                 kernel_width=c.kernel_width, num_groups=c.num_groups)
+            self.out = ConvOutput(out_dim=c.nx, hdim=c.hdim, kernel_width=c.kernel_width,
+                                  num_groups=c.num_groups)
+            # per-iteration embedding: in the checkpoint, unused by the base
+            # forward exactly as in the JAX package
+            self.iter_emb = nn.Parameter(torch.zeros(c.deq_iter, c.T - 1, c.hdim))
+        else:
+            raise NotImplementedError(c.layer_type)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -70,10 +113,11 @@ class DEQLayer(nn.Module):
         CPU from `generator`, so one seed gives the same weights on any
         device. The distributions are flax's (`models/blocks.py` of the
         JAX package): Dense and conv kernels lecun-normal (a normal
-        truncated at two standard deviations, variance 1/fan_in), the time
-        embedding N(0, 1), biases, norm offsets and `iter_emb` zero, norm
-        scales one. The draws are not flax's: a port run and a JAX run
-        from the same seed start from different weights."""
+        truncated at two standard deviations, variance 1/fan_in), time
+        embeddings N(0, 1), biases, norm offsets and `iter_emb` zero, norm
+        scales and the Delta variant's `scales` one. The draws are not
+        flax's: a port run and a JAX run from the same seed start from
+        different weights."""
 
         def lecun_normal(p, fan_in):
             std = fan_in ** -0.5 / 0.87962566103423978
@@ -92,14 +136,50 @@ class DEQLayer(nn.Module):
             elif isinstance(module, (LayerNorm, GroupNorm)):
                 module.scale.fill_(1.0)
                 module.bias.zero_()
-        t_emb = self.input.time_emb
-        t_emb.copy_(torch.randn(t_emb.shape, generator=generator, dtype=torch.float64))
-        self.iter_emb.zero_()
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "time_emb":
+                p.copy_(torch.randn(p.shape, generator=generator, dtype=torch.float64))
+            elif leaf == "iter_emb":
+                p.zero_()
+            elif leaf == "scales":
+                p.fill_(1.0)
+
+    def _like(self):
+        return next(self.parameters())
 
     def init_z(self, bsz: int, dtype=None, device=None):
         c = self.cfg
-        return torch.zeros((bsz, c.T - 1, c.hdim), dtype=dtype or self.iter_emb.dtype,
-                           device=device or self.iter_emb.device)
+        p = self._like()
+        shape = (bsz, c.hdim) if c.layer_type == "mlp" else (bsz, c.T - 1, c.hdim)
+        return torch.zeros(shape, dtype=dtype or p.dtype, device=device or p.device)
+
+    def _obstacle_feats(self, x_knots):
+        """Per-knot features of the n_sel nearest spheres: the clipped center
+        offsets (3k) and clearances (k), (B, T-1, 4k)."""
+        c = self.cfg
+        centers = self.obstacle_centers.to(x_knots.dtype)                # (N, 3)
+        pos = x_knots[..., :3]                                           # (B, T-1, 3)
+        d2 = torch.sum((pos[..., None, :] - centers) ** 2, dim=-1)       # (B, T-1, N)
+        # nearest first, ties to the lower index (a stable sort), as lax.top_k
+        idx = torch.sort(d2.detach(), dim=-1, stable=True).indices[..., :OBSTACLE_N_SEL]
+        off = centers[idx] - pos[..., None, :]                           # (B, T-1, k, 3)
+        clear = torch.linalg.vector_norm(off, dim=-1) - c.obstacle_radius
+        r = OBSTACLE_RANGE
+        off, clear = torch.clamp(off, -r, r), torch.clamp(clear, -r, r)
+        return torch.cat([off.flatten(-2), clear], dim=-1)
+
+    def _input(self, obs, x_prev, extra=()):
+        """The input injection from the observation and the carried
+        trajectory (and a variant's `extra` streams), with the obstacle
+        features when the layer has a field."""
+        if self.cfg.obstacle_centers is not None:
+            extra = (*extra, self._obstacle_feats(x_prev[:, 1:]))
+        if self.cfg.layer_type == "mlp":
+            bsz = x_prev.shape[0]
+            return self.input(torch.cat([x_prev.reshape(bsz, -1),
+                                         *[e.reshape(bsz, -1) for e in extra]], dim=-1))
+        return self.input(x_prev[:, 1:], obs, extra)
 
     def _fixed_point(self, inj, z):
         """Anderson on the cell without a gradient, then three cell
@@ -128,12 +208,20 @@ class DEQLayer(nn.Module):
         u_ref = torch.zeros((bsz, c.T, c.nu), dtype=x_ref.dtype, device=x_ref.device)
         return x_ref, u_ref
 
-    def forward(self, obs, x_prev, z) -> Tuple[Dict, torch.Tensor]:
-        """obs (bsz, nx), x_prev (bsz, T, nx), z (bsz, T-1, hdim) ->
-        ({"x_t", "x_ref", "u_ref"}, z_out)."""
-        z_out = self._fixed_point(self.input(x_prev[:, 1:], obs), z)
+    def step(self, obs, aux: Dict) -> Tuple[Dict, Dict]:
+        """One round (`deq_layer.py:287-302`): aux {"x", "z", "iter", ...}
+        -> ({"x_t", "x_ref", "u_ref"}, {"x", "u", "z", "iter"})."""
+        x_prev = aux["x"]
+        z_out = self._fixed_point(self._input(obs, x_prev), aux["z"])
         x_ref, u_ref = self._decode(obs, x_prev, self.out(z_out))
-        return {"x_t": obs, "x_ref": x_ref, "u_ref": u_ref}, z_out
+        return ({"x_t": obs, "x_ref": x_ref, "u_ref": u_ref},
+                {"x": x_ref, "u": u_ref, "z": z_out, "iter": aux.get("iter", 0)})
+
+    def forward(self, obs, x_prev, z) -> Tuple[Dict, torch.Tensor]:
+        """obs (bsz, nx), x_prev (bsz, T, nx), z (bsz, T-1, hdim), or
+        (bsz, hdim) for the mlp trunk -> ({"x_t", "x_ref", "u_ref"}, z_out)."""
+        out_mpc, aux = self.step(obs, {"x": x_prev, "z": z})
+        return out_mpc, aux["z"]
 
 
 class FFDNetwork(DEQLayer):

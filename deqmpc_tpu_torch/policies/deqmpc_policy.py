@@ -32,9 +32,15 @@ solve's AL state. The model types of the train CLI set them: diff-mpc
 (`qp_solve` off, `lastqp_solve` on, one round), deq (neither, one round).
 `NNMPCPolicy` is the feed-forward network, one round (the nn model type).
 `solver_type="ip"` puts the interior-point SQP solve in every tracking
-solve. `build_policy` mirrors `training/train.py:191-246` for the base
-variant; the other variants and the obstacle-aware network input wait
-for later slices.
+solve. `build_policy` mirrors `training/train.py:191-246`: the base
+policy, `NNMPCPolicy`, and the variants of `policies/policy_variants.py`
+(`policy_variant` mem (or `addmem`), delta, history, estpred, feedback,
+q), each model made by the class's `_make_model` hook. The network's
+round is `model.step(obs, aux)`: `aux` holds the carried trajectory, the
+latent z and `iter` (round i, or i + 2 on warm ticks, `deqmpc_policy.py:183`;
+only the variants with iteration embeddings read it) and a variant's own
+streams. `layer_type="mlp"` is the flat trunk; `obstacle_net_input` with a
+field gives the network the nearest-sphere features of every knot.
 """
 from __future__ import annotations
 
@@ -50,8 +56,9 @@ from .tracking_mpc import TrackingMPC
 
 
 class PolicyCarry(NamedTuple):
-    """Streaming carry: the shifted latent z (bsz, T-1, hdim), trajectory
-    x (bsz, T, nx) and u (bsz, T, nu), and the AL solver state."""
+    """Streaming carry: the latent z ((bsz, T-1, hdim) for the gcn trunk,
+    (bsz, hdim) for the mlp one), trajectory x (bsz, T, nx) and u
+    (bsz, T, nu), and the AL solver state."""
 
     z: torch.Tensor
     x: torch.Tensor
@@ -67,7 +74,10 @@ class PolicyConfig:
     T: int
     dt: float
     hdim: int = 128
+    layer_type: str = "gcn"  # or "mlp"
     deq_iter: int = 6
+    deq_out_type: int = 1    # 2: the History variant's joint state and action output
+    fp_type: str = "anderson"  # or "single": one cell application a round
     fp_max_steps: int = 10
     fp_m: int = 5
     kernel_width: int = 3
@@ -92,9 +102,15 @@ class PolicyConfig:
     qp_iter: int = 1
     ip_eps: float = 1e-2
     ip_grad_method: str = "analytic"
+    # the network's nearest-sphere input, when the policy is given a field
+    obstacle_net_input: bool = False
 
 
 class DEQMPCPolicy:
+    takes_history = False         # forward reads an (bsz, H, nx) history
+    takes_action_history = False  # forward also reads the history's actions
+    is_delta = False              # the trainer's EMA of the output scales
+
     def __init__(self, cfg: PolicyConfig, env, device="cuda",
                  obstacles: Optional[ObstacleSet] = None):
         self.cfg = cfg
@@ -108,12 +124,16 @@ class DEQMPCPolicy:
         # rho_init_max 1e4 under the f32 rho_max 1e5, 100% with 10
         # (`deqmpc_policy.py:118-126`)
         self.rho_warm_max = min(cfg.rho_init_max, cfg.rho_max * 1e-4)
+        aware = cfg.obstacle_net_input and obstacles is not None
         mcfg = DEQLayerConfig(
             nx=cfg.nx, nu=cfg.nu, nq=cfg.nq, T=cfg.T, dt=cfg.dt, hdim=cfg.hdim,
-            deq_iter=cfg.deq_iter, fp_m=cfg.fp_m, fp_max_steps=cfg.fp_max_steps,
-            kernel_width=cfg.kernel_width,
+            layer_type=cfg.layer_type, deq_iter=cfg.deq_iter, fp_type=cfg.fp_type,
+            fp_m=cfg.fp_m, fp_max_steps=cfg.fp_max_steps, kernel_width=cfg.kernel_width,
+            obstacle_centers=torch.as_tensor(obstacles.centers).cpu().numpy() if aware else None,
+            obstacle_radius=float(obstacles.radius) if aware else 0.0,
         )
-        self.model = (FFDNetwork if cfg.deq_type == "nn" else DEQLayer)(mcfg).to(self.device)
+        model = FFDNetwork(mcfg) if cfg.deq_type == "nn" else self._make_model(mcfg)
+        self.model = model.to(self.device)
         self.tracking_mpc = TrackingMPC(
             env, cfg.T, al_iter=cfg.al_iter, dtype=cfg.solver_dtype,
             max_newton_steps=cfg.max_newton_steps, rho_max=cfg.rho_max,
@@ -122,6 +142,10 @@ class DEQMPCPolicy:
             solver_type=cfg.solver_type, qp_iter=cfg.qp_iter, ip_eps=cfg.ip_eps,
             ip_grad_method=cfg.ip_grad_method, device=self.device,
         )
+
+    def _make_model(self, mcfg: DEQLayerConfig):
+        """The network of this policy class (`deqmpc_policy.py:131-132`)."""
+        return DEQLayer(mcfg)
 
     def init(self, seed: int) -> "DEQMPCPolicy":
         """Seeded fresh parameters (`DEQLayer.reset_parameters`: flax's
@@ -159,37 +183,42 @@ class DEQMPCPolicy:
         return (cfg.qp_solve if qp_solve is None else qp_solve,
                 cfg.lastqp_solve if lastqp_solve is None else lastqp_solve)
 
+    def _cold_aux(self, x_t) -> Dict:
+        """The first round's aux: the current state tiled over the horizon,
+        zero actions, a zero latent."""
+        bsz = x_t.shape[0]
+        return {"x": x_t[:, None].expand(bsz, self.T, self.nx),
+                "u": torch.zeros((bsz, self.T, self.nu), dtype=x_t.dtype, device=x_t.device),
+                "z": self.model.init_z(bsz, x_t.dtype, x_t.device)}
+
     def forward(self, obs, qp_solve: Optional[bool] = None,
                 lastqp_solve: Optional[bool] = None) -> Dict:
         """Cold-start forward (`deqmpc_policy.py:143-160`). obs (bsz, nx)
         -> {"trajs": [(x_ref, x_opt, u_opt)] * deq_iter, "status",
         "init_states", "carry"}."""
-        bsz = obs.shape[0]
-        x_ref = obs[:, None].expand(bsz, self.T, self.nx)
-        u_ref = torch.zeros((bsz, self.T, self.nu), dtype=obs.dtype, device=obs.device)
-        policy_out = self._deqmpc_iter(obs, x_ref, u_ref,
-                                       self.model.init_z(bsz, obs.dtype, obs.device),
-                                       self.tracking_mpc.init_state(bsz),
+        aux = self._cold_aux(obs)
+        policy_out = self._deqmpc_iter(obs, aux, self.tracking_mpc.init_state(obs.shape[0]),
                                        *self._mode(qp_solve, lastqp_solve))
-        policy_out["init_states"] = x_ref
+        policy_out["init_states"] = aux["x"]
         return policy_out
 
     def forward_warm_start(self, obs, carry: PolicyCarry, qp_solve: Optional[bool] = None,
                            lastqp_solve: Optional[bool] = None) -> Dict:
         """Streaming forward (`deqmpc_policy.py:163-173`) from the carry of
         the tick before; same outputs as `forward`."""
-        policy_out = self._deqmpc_iter(obs, carry.x, carry.u, carry.z, carry.solver,
+        aux = {"x": carry.x, "u": carry.u, "z": carry.z}
+        policy_out = self._deqmpc_iter(obs, aux, carry.solver,
                                        *self._mode(qp_solve, lastqp_solve), warm_start=True)
         policy_out["init_states"] = carry.x
         return policy_out
 
-    def _deqmpc_iter(self, obs, x_prev, u_prev, z, sol_state, qp_solve: bool,
+    def _deqmpc_iter(self, obs, aux: Dict, sol_state, qp_solve: bool,
                      lastqp_solve: bool, warm_start: bool = False) -> Dict:
         cfg = self.cfg
         trajs = []
         status = torch.zeros((obs.shape[0],), dtype=torch.bool, device=obs.device)
         for i in range(self.deq_iter):
-            out_mpc, z = self.model(obs, x_prev, z)
+            out_mpc, aux = self.model.step(obs, {**aux, "iter": i + 2 if warm_start else i})
             x_t, x_ref, u_ref = out_mpc["x_t"], out_mpc["x_ref"], out_mpc["u_ref"]
             if warm_start and i == 0:
                 # the receding-horizon shift of the duals and iterate
@@ -199,25 +228,29 @@ class DEQMPCPolicy:
                 ns, na, status, sol_state = self.tracking_mpc(
                     x_t, x_ref, u_ref, sol_state, al_iters=cfg.al_iter, streaming=warm_start,
                     linearize_once=warm_start and cfg.linearize_once)
-            # the next round reads the solver's trajectory, or without a
-            # solve the network's own
-            x_prev, u_prev = ns, na
+                # the next round reads the solver's trajectory
+                aux = {**aux, "x": ns, "u": na}
             trajs.append((x_ref, ns.detach(), na.detach()) if lastqp_solve else (x_ref, ns, na))
         if lastqp_solve:
             ns, na, status, sol_state = self.tracking_mpc(x_t, x_ref, u_ref, sol_state,
                                                           al_iters=10)
             trajs[-1] = (x_ref, ns, na)
-        return {"trajs": trajs, "status": status,
-                "carry": self._save_carry(z, x_prev, u_prev, sol_state)}
+        return {"trajs": trajs, "status": status, "carry": self._save_carry(aux, sol_state)}
 
-    @staticmethod
-    def _save_carry(z, x, u, sol_state) -> PolicyCarry:
-        """Shift z, x and u left one knot along their time axis, repeating
-        the last, and detach them (`deqmpc_policy.py:238-264`)."""
+    def _save_carry(self, aux: Dict, sol_state) -> PolicyCarry:
+        """Shift x and u left one knot, repeating the last, and detach them
+        (`deqmpc_policy.py:238-264`); z likewise where a leaf has a time
+        axis: 3-D with T or T-1 knots (the mlp latent (bsz, hdim) and a
+        history's (bsz, H, hdim) stay as they are)."""
         def shift(a):
             return torch.cat([a[:, 1:], a[:, -1:]], dim=1).detach()
 
-        return PolicyCarry(z=shift(z), x=shift(x), u=shift(u), solver=sol_state)
+        def shift_z(a):
+            return shift(a) if a.dim() == 3 and a.shape[1] in (self.T, self.T - 1) else a.detach()
+
+        z = aux["z"]
+        z = tuple(shift_z(a) for a in z) if isinstance(z, tuple) else shift_z(z)
+        return PolicyCarry(z=z, x=shift(aux["x"]), u=shift(aux["u"]), solver=sol_state)
 
 
 class NNMPCPolicy(DEQMPCPolicy):
@@ -230,25 +263,32 @@ class NNMPCPolicy(DEQMPCPolicy):
                          device=device, obstacles=obstacles)
 
 
+# the keys whose other values wait for a later slice, with the values ported
+NOT_PORTED = {
+    "fp_type": ("anderson", "single"), "grad_type": ("fp_grad",), "recompute_Qq": (False,),
+    "compute_dtype": ("f32",), "grad_coeff": (False,), "deq_type": ("deq", "nn"),
+    # the FlyingCartpole's state-weight scale, which the port's envs keep at 1
+    "Qscale": (1.0,),
+}
+POLICY_VARIANTS = ("base", "mem", "delta", "history", "estpred", "feedback", "q")
+
+
 def build_policy(args: Mapping[str, Any], env, device="cuda",
                  obstacles: Optional[ObstacleSet] = None) -> DEQMPCPolicy:
-    """The policy a checkpoint's `args` describe (`training/train.py:191-246`,
-    the base variant with the deq or the nn network, or `NNMPCPolicy` when
-    `deq` is false), with the args' `qp_solve`, `lastqp_solve` and
-    `solver_type`. `obstacles`: the env's field
-    (`training.train.build_obstacles`), or None."""
+    """The policy a checkpoint's `args` describe (`training/train.py:191-246`):
+    `NNMPCPolicy` when `deq` is false, else the `policy_variant` (`addmem`
+    meaning mem; history and estpred with the args' `H`), with the args'
+    trunk (`layer_type`), `deq_out_type`, `qp_solve`, `lastqp_solve`,
+    `solver_type` and `obstacle_net_input`. `obstacles`: the env's field
+    (`training.train.build_obstacles`), or None. Keys of `NOT_PORTED` with
+    another value raise NotImplementedError."""
     a = dict(args)
-    unsupported = {
-        "policy_variant": ("base",), "addmem": (False,),
-        "deq_type": ("deq", "nn"), "layer_type": ("gcn",), "obstacle_net_input": (False,),
-        "fp_type": ("anderson",), "deq_out_type": (1,), "grad_type": ("fp_grad",),
-        "recompute_Qq": (False,), "compute_dtype": ("f32",),
-        # the FlyingCartpole's state-weight scale, which the port's envs keep at 1
-        "Qscale": (1.0,),
-    }
-    for key, ok in unsupported.items():
+    for key, ok in NOT_PORTED.items():
         if key in a and a[key] not in ok:
             raise NotImplementedError(f"{key}={a[key]!r} is not ported yet")
+    variant = "mem" if a.get("addmem", False) else a.get("policy_variant", "base")
+    if variant not in POLICY_VARIANTS:
+        raise ValueError(f"unknown policy_variant {variant!r}")
     nq = a["nq"] if a.get("nq", 0) > 0 else (env.nq if env.nq <= env.nx // 2 else env.nx // 2)
     double = a.get("dtype", "float32") == "double"
     rho_max = a.get("rho_max")
@@ -256,7 +296,8 @@ def build_policy(args: Mapping[str, Any], env, device="cuda",
         rho_max = 1e8 if double else 1e5
     cfg = PolicyConfig(
         nx=env.nx, nu=env.nu, nq=min(nq, env.nx // 2), T=a["T"], dt=env.dt,
-        hdim=a["hdim"], deq_iter=a["deq_iter"],
+        hdim=a["hdim"], layer_type=a.get("layer_type", "gcn"), deq_iter=a["deq_iter"],
+        deq_out_type=a.get("deq_out_type", 1), fp_type=a.get("fp_type", "anderson"),
         fp_max_steps=int(a.get("max_steps", 10)), fp_m=a.get("m", 5),
         kernel_width=a.get("kernel_width", 3), al_iter=2,
         solver_dtype=torch.float64 if double else torch.float32, rho_max=rho_max,
@@ -268,6 +309,18 @@ def build_policy(args: Mapping[str, Any], env, device="cuda",
         qp_solve=a.get("qp_solve", True), lastqp_solve=a.get("lastqp_solve", False),
         solver_type=a.get("solver_type", "al"), qp_iter=a.get("qp_iter", 1),
         ip_eps=a.get("eps", 1e-2), ip_grad_method=a.get("ip_grad_method", "analytic"),
+        obstacle_net_input=a.get("obstacle_net_input", False),
     )
-    cls = DEQMPCPolicy if a.get("deq", True) else NNMPCPolicy
-    return cls(cfg, env, device=device, obstacles=obstacles)
+    kw = dict(device=device, obstacles=obstacles)
+    if not a.get("deq", True):
+        return NNMPCPolicy(cfg, env, **kw)
+    if variant == "base":
+        return DEQMPCPolicy(cfg, env, **kw)
+    from . import policy_variants as pv
+
+    if variant in ("history", "estpred"):
+        cls = pv.DEQMPCPolicyHistory if variant == "history" else pv.DEQMPCPolicyHistoryEstPred
+        return cls(cfg, env, H=a.get("H", 1), **kw)
+    cls = {"mem": pv.DEQMPCPolicyMem, "delta": pv.DEQMPCPolicyDelta,
+           "feedback": pv.DEQMPCPolicyFeedback, "q": pv.DEQMPCPolicyQ}[variant]
+    return cls(cfg, env, **kw)

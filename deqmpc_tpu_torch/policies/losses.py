@@ -1,12 +1,15 @@
 """Per-iteration imitation losses for DEQ-MPC training.
 
 Port of `loss_type_conditioned`, `compute_cost_coeff`,
-`compute_loss_deqmpc` and `_iter_weights`
-(`deqmpc_tpu/policies/losses.py:25-161`): every round's (optimizer
+`compute_loss_deqmpc`, `_iter_weights` and `compute_loss_deqmpc_hist`
+(`deqmpc_tpu/policies/losses.py:25-199`): every round's (optimizer
 trajectory, network trajectory) pair is held against the expert window,
-loss = sum_j mean_b(loss_opt_j + deq_reg * loss_nn_j). The residual
-iteration and example weights are computed for logging and, as in the
-JAX package, not applied.
+loss = sum_j mean_b(loss_opt_j + deq_reg * loss_nn_j), plus, for the Q
+variant, 0.02 * sum_t |q_scaling_j| per sample (`losses.py:102-117`). The
+residual iteration and example weights are computed for logging and, as
+in the JAX package, not applied. The History/EstPred loss logs each
+round's state-estimate losses against the observed history and, as in
+JAX, leaves them out of the total.
 """
 from __future__ import annotations
 
@@ -75,13 +78,20 @@ def compute_loss_deqmpc(policy, gt_states, gt_actions, gt_mask, policy_out,
                                   gt_actions, gt_mask, states, actions,
                                   cs[j, 0], cs[j, 1], cs[j, 2])
 
-    losses, loss_opts, loss_nns, residuals = [], [], [], []
+    losses, loss_opts, loss_nns, residuals, q_losses = [], [], [], [], []
+    q_pen = policy_out.get("q_scaling")
     if x_init is not None:
         residuals.append(cost(x_init, trajs[0][2] * 0, 0)[1])
     for j, (net_states, opt_states, actions) in enumerate(trajs):
         loss_opt_j, res = cost(opt_states, actions, j)
         loss_nn_j, _ = cost(net_states, actions, j)
-        losses.append(loss_opt_j + policy.deq_reg * loss_nn_j)
+        total_j = loss_opt_j + policy.deq_reg * loss_nn_j
+        if q_pen is not None:
+            # the pull of the scalings towards 0 (Q * (q + 1) towards Q)
+            lq = 0.02 * q_pen[j].abs().sum(dim=1)
+            total_j = total_j + lq
+            q_losses.append(lq.mean())
+        losses.append(total_j)
         loss_opts.append(loss_opt_j.mean())
         loss_nns.append(loss_nn_j.mean())
         residuals.append(res)
@@ -91,7 +101,9 @@ def compute_loss_deqmpc(policy, gt_states, gt_actions, gt_mask, policy_out,
     ex_weights = residuals.mean(dim=1, keepdim=True)
     ex_weights = ex_weights / (ex_weights.mean() + 1e-12)
     loss_end, _ = cost(trajs[-1][1], trajs[-1][2], n_iter - 1)
+    extra = {"losses_iter_q": torch.stack(q_losses)} if q_losses else {}
     return {
+        **extra,
         "loss": losses.mean(dim=0).sum(),
         "loss_end": loss_end.mean(),
         "losses_iter_opt": torch.stack(loss_opts),
@@ -111,3 +123,29 @@ def _iter_weights(residuals, gt_mask):
     one_step = (gt_mask.sum(dim=1) == 1)[:, None]
     w = torch.where(one_step, torch.ones_like(w), w)
     return w / (w.sum(dim=1, keepdim=True) + 1e-12)
+
+
+def compute_loss_deqmpc_hist(policy, gt_states, gt_actions, gt_obs, gt_mask, policy_out,
+                             coeffs: Optional[torch.Tensor] = None,
+                             x_init: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The History/EstPred loss (`losses.py:164-199`): `compute_loss_deqmpc`
+    and, where the forward gave `nominal_x_ests`, each round's estimate
+    losses against the observed history gt_obs (bsz, H, nx), before and
+    after the estimator (`losses_x_ests`, `losses_x_ests_post`), logged
+    and left out of the loss."""
+    out = compute_loss_deqmpc(policy, gt_states, gt_actions, gt_mask, policy_out,
+                              coeffs=coeffs, x_init=x_init)
+    x_ests = policy_out.get("nominal_x_ests")
+    if x_ests is None:
+        return out
+    H = gt_obs.shape[1]
+    ones = torch.ones(gt_mask.shape[:1] + (H,), dtype=gt_mask.dtype, device=gt_mask.device)
+    u0 = torch.zeros(gt_obs.shape[:2] + (policy.nu,), dtype=gt_obs.dtype, device=gt_obs.device)
+
+    def cost(x_est):
+        return compute_cost_coeff(policy.nq, H, policy.out_type, policy.loss_type, gt_obs, u0,
+                                  ones, x_est, u0, 1.0, 1.0, 1.0)[0].mean()
+
+    out["losses_x_ests"] = torch.stack([cost(pre) for pre, _ in x_ests])
+    out["losses_x_ests_post"] = torch.stack([cost(post) for _, post in x_ests])
+    return out

@@ -11,8 +11,12 @@ Q = diag([Qlqr, Rlqr]) per knot point, the linear term p = -Q * xu_ref and
 the constant f = 0.5 xu_ref'Q xu_ref. With `obstacles` (the field), each
 call selects the `n_obs_sel` spheres nearest to the reference's knots,
 from x_ref cast to the solver dtype, and hands them to the solve
-(`tracking_mpc.py:142-143,183`). The q-scaling, auxiliary-cost and
-cost-refresh options wait for later slices.
+(`tracking_mpc.py:142-143,183`). `q_scaling` (bsz, T), the Q variant's
+per-knot scalings, scales the cost as Q * (q_scaling + 1)
+(`tracking_mpc.py:118-128`). `state_estimator=True` is the MHE flavour
+(`tracking_mpc.py:43-46`): Q = diag([Qlqr, 0]), a cost on the states
+only, and the AL solve without the initial-state row or the control box.
+The auxiliary-cost and cost-refresh options wait for a later slice.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from ..solvers import ALMPC, IPMPC, ALState, ObstacleSet, QuadCost
 
 
 class TrackingMPC:
-    def __init__(self, env, T: int, al_iter: int = 2, dtype=torch.float32,
+    def __init__(self, env, T: int, al_iter: int = 2, state_estimator: bool = False,
+                 dtype=torch.float32,
                  max_newton_steps: int = 4, rho_max: float = 1e8,
                  dyn_res_tol: float = 1e-3, obstacles: Optional[ObstacleSet] = None,
                  n_obs_sel: int = 4, solver_type: str = "al", qp_iter: int = 1,
@@ -36,9 +41,10 @@ class TrackingMPC:
         self.solver_type = solver_type
         self.nx, self.nu, self.T = env.nx, env.nu, T
         self.dtype = dtype
-        self.Q0 = torch.as_tensor(
-            np.concatenate([np.asarray(env.Qlqr), np.asarray(env.Rlqr)]),
-            dtype=dtype, device=device)
+        self.state_estimator = state_estimator
+        R = np.zeros(env.nu) if state_estimator else np.asarray(env.Rlqr)
+        self.Q0 = torch.as_tensor(np.concatenate([np.asarray(env.Qlqr), R]),
+                                  dtype=dtype, device=device)
 
         def dyn_jac(x, u):
             xn, (Jx, Ju) = env.dynamics_derivatives(x, u)
@@ -49,7 +55,8 @@ class TrackingMPC:
             u_lower=env.action_space.low, u_upper=env.action_space.high,
             dyn=env.dynamics, dyn_jac=dyn_jac, al_iter=al_iter, dtype=dtype,
             max_newton_steps=max_newton_steps, rho_max=rho_max,
-            dyn_res_tol=dyn_res_tol, obstacles=obstacles, n_obs_sel=n_obs_sel, device=device,
+            dyn_res_tol=dyn_res_tol, obstacles=obstacles, n_obs_sel=n_obs_sel,
+            state_estimator=state_estimator, device=device,
         )
         if solver_type == "ip":
             self.ip_ctrl = IPMPC(
@@ -70,18 +77,21 @@ class TrackingMPC:
         return -Q * xu_ref, 0.5 * torch.sum(xu_ref * Q * xu_ref, dim=-1)
 
     def __call__(self, x0, x_ref, u_ref, state: ALState, al_iters: int = 2,
-                 streaming: bool = False, linearize_once: bool = False):
+                 streaming: bool = False, linearize_once: bool = False, q_scaling=None):
         """Returns (nominal_states, nominal_actions, status, new_state),
         states and actions cast back to the network dtype. streaming: the
         solve's rho-cap exit; with linearize_once too, the AL loop runs on
         the dynamics linearised once at the warm-started iterate, with a
         fixed budget of 8 iterations whose exits govern termination
         (`tracking_mpc.py:170-178`). With solver_type "ip" the SQP solve
-        runs instead, from x_ref and u_ref, and neither option applies."""
+        runs instead, from x_ref and u_ref, and neither option applies.
+        q_scaling (bsz, T): Q * (q_scaling + 1), with its gradient."""
         bsz = x0.shape[0]
         net_dtype = x_ref.dtype
         xu_ref = torch.cat([x_ref, u_ref], dim=-1).to(self.dtype)
         Q = self.Q0.expand(bsz, self.T, self.nx + self.nu)
+        if q_scaling is not None:
+            Q = Q * (q_scaling.to(self.dtype) + 1.0)[:, :, None]
         p, f = self.compute_pf(xu_ref, Q)
         cost = QuadCost(Q=Q, q=p, f=f)
         if self.solver_type == "ip":

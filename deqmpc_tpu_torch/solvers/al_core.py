@@ -13,7 +13,11 @@ Constraint ordering (as in the JAX package):
                    radius^2 - |xyz_t - o_k|^2 of its n_sel selected
                    spheres.
 Duals `lam` are flat: [eq (T*nx) | u-box (T*2*nu) | obstacles (T*n_sel)].
-The state-estimator variant is not ported.
+
+The state-estimator (MHE, moving-horizon estimation) flavour,
+`state_estimator=True` (`al_core.py:58-64,184-231`): no initial-state row
+(a zero row in its slot keeps the shapes), no control box (pass u_lower
+None), and no S'S on block 0 of the Hessian.
 """
 from __future__ import annotations
 
@@ -43,6 +47,13 @@ def eq_residuals(dyn, x, u, x0):
     return torch.cat([defects, (x[:, 0] - x0)[:, None]], dim=1)
 
 
+def eq_residuals_se(dyn, x, u, x0):
+    """The state-estimator flavour: the defects, then a zero row in place of
+    the initial-state residual."""
+    defects = x[:, 1:] - dyn(x[:, :-1], u[:, :-1])
+    return torch.cat([defects, torch.zeros_like(defects[:, :1])], dim=1)
+
+
 def ineq_residuals(u, u_lower, u_upper):
     """Control box rows per step: [u - u_hi ; u_lo - u]. Returns
     (res, res_clamp), each (bsz, T, 2*nu)."""
@@ -58,12 +69,16 @@ def obstacle_residuals(x, obs: ObstacleSet):
     return res, torch.clamp(res, min=0.0)
 
 
-def full_residuals(dyn, x, u, x0, u_lower, u_upper, obs=None):
-    """All residuals, flattened: (res, res_clamp), each (bsz, ncon)."""
+def full_residuals(dyn, x, u, x0, u_lower, u_upper, obs=None, state_estimator=False):
+    """All residuals, flattened: (res, res_clamp), each (bsz, ncon). No
+    control-box rows when u_lower is None."""
     bsz = x.shape[0]
-    r_eq = eq_residuals(dyn, x, u, x0).reshape(bsz, -1)
-    r_in, r_in_c = ineq_residuals(u, u_lower, u_upper)
-    parts, parts_c = [r_eq, r_in.reshape(bsz, -1)], [r_eq, r_in_c.reshape(bsz, -1)]
+    r_eq = (eq_residuals_se if state_estimator else eq_residuals)(dyn, x, u, x0).reshape(bsz, -1)
+    parts, parts_c = [r_eq], [r_eq]
+    if u_lower is not None:
+        r_in, r_in_c = ineq_residuals(u, u_lower, u_upper)
+        parts.append(r_in.reshape(bsz, -1))
+        parts_c.append(r_in_c.reshape(bsz, -1))
     if obs is not None:
         r_o, r_o_c = obstacle_residuals(x, obs)
         parts.append(r_o.reshape(bsz, -1))
@@ -80,12 +95,13 @@ def compute_cost(xu, Q, q):
     return torch.sum(0.5 * xu * Q * xu + q * xu, dim=(-2, -1))
 
 
-def merit_function(dyn, xu, Q, q, x0, lam, rho, u_lower, u_upper, obs=None):
+def merit_function(dyn, xu, Q, q, x0, lam, rho, u_lower, u_upper, obs=None,
+                   state_estimator=False):
     """L = cost + 0.5*rho*|res_clamp|^2 + lam'res.
     Shapes: xu (bsz, T, n); rho (bsz, 1); lam (bsz, ncon)."""
     nx = x0.shape[-1]
     res, res_c = full_residuals(dyn, xu[..., :nx], xu[..., nx:], x0,
-                                u_lower, u_upper, obs)
+                                u_lower, u_upper, obs, state_estimator)
     return (compute_cost(xu, Q, q)
             + 0.5 * rho[:, 0] * torch.sum(res_c * res_c, dim=1)
             + torch.sum(lam * res, dim=1))
@@ -96,7 +112,7 @@ def merit_function(dyn, xu, Q, q, x0, lam, rho, u_lower, u_upper, obs=None):
 # --------------------------------------------------------------------------
 
 def merit_grad_blocks(xu, Q, q, x0, lam, rho, F, u_lower, u_upper, dyn_eq_res,
-                      obs=None):
+                      obs=None, state_estimator=False):
     """Merit gradient and GN Hessian in block-tridiagonal form.
 
     xu: (bsz, T, n); F: dynamics Jacobians [A_t B_t] (bsz, T-1, nx, n);
@@ -104,7 +120,9 @@ def merit_grad_blocks(xu, Q, q, x0, lam, rho, F, u_lower, u_upper, dyn_eq_res,
     caller alongside F. Returns g (bsz, T, n), D (bsz, T, n, n),
     O (bsz, T-1, n, n), res and res_clamp (bsz, ncon). With `obs`, the
     obstacle rows add their gradient on the xyz part of each block and,
-    where active, rho J_o'J_o on its 3x3."""
+    where active, rho J_o'J_o on its 3x3. With `state_estimator` there is
+    no initial-state row and block 0 gets no S'S; u_lower None means no
+    control-box rows."""
     bsz, T, n = xu.shape
     nx = x0.shape[-1]
     nu = n - nx
@@ -123,27 +141,33 @@ def merit_grad_blocks(xu, Q, q, x0, lam, rho, F, u_lower, u_upper, dyn_eq_res,
         gt = -torch.einsum("btij,bti->btj", F, v_eq[:, : T - 1])
         out = F_nn.pad(gt, (0, 0, 0, 1))
         out = out + F_nn.pad(v_eq[:, : T - 1], (0, nu, 1, 0))
+        if state_estimator:
+            return out
         # the initial-state row (stored at slot T-1) acts on block 0
         return out + F_nn.pad(v_eq[:, T - 1][:, None], (0, nu, 0, T - 1))
 
     g = g + eq_terms(lam_eq) + eq_terms(rho[..., None] * r_eq)
+    res_parts = [r_eq.reshape(bsz, -1)]
+    res_c_parts = [r_eq.reshape(bsz, -1)]
+    off = T * nx
 
-    r_in, r_in_c = ineq_residuals(u, u_lower, u_upper)
-    lam_in = lam[:, T * nx: T * nx + T * 2 * nu].reshape(bsz, T, 2 * nu)
-    # rows [u - u_hi] have +I_u, rows [u_lo - u] have -I_u
-    gu = (lam_in[..., :nu] - lam_in[..., nu:]) + rho[..., None] * (
-        r_in_c[..., :nu] - r_in_c[..., nu:])
-    g = g + F_nn.pad(gu, (nx, 0))
-    active_u = (r_in >= 0).to(dtype)
-    res_parts = [r_eq.reshape(bsz, -1), r_in.reshape(bsz, -1)]
-    res_c_parts = [r_eq.reshape(bsz, -1), r_in_c.reshape(bsz, -1)]
+    if u_lower is not None:
+        r_in, r_in_c = ineq_residuals(u, u_lower, u_upper)
+        lam_in = lam[:, off: off + T * 2 * nu].reshape(bsz, T, 2 * nu)
+        off += T * 2 * nu
+        # rows [u - u_hi] have +I_u, rows [u_lo - u] have -I_u
+        gu = (lam_in[..., :nu] - lam_in[..., nu:]) + rho[..., None] * (
+            r_in_c[..., :nu] - r_in_c[..., nu:])
+        g = g + F_nn.pad(gu, (nx, 0))
+        active_u = (r_in >= 0).to(dtype)
+        res_parts.append(r_in.reshape(bsz, -1))
+        res_c_parts.append(r_in_c.reshape(bsz, -1))
 
     if obs is not None:
         r_o, r_o_c = obstacle_residuals(xu[..., :nx], obs)  # (bsz, T, n_sel)
         res_parts.append(r_o.reshape(bsz, -1))
         res_c_parts.append(r_o_c.reshape(bsz, -1))
         n_sel = r_o.shape[-1]
-        off = T * nx + T * 2 * nu
         lam_o = lam[:, off: off + T * n_sel].reshape(bsz, T, n_sel)
         jac_obs = -2.0 * (xu[..., None, :3] - obs.centers)  # (bsz, T, n_sel, 3)
         active_obs = (r_o >= 0).to(dtype)
@@ -156,14 +180,20 @@ def merit_grad_blocks(xu, Q, q, x0, lam, rho, F, u_lower, u_upper, dyn_eq_res,
                        torch.zeros(nu, dtype=dtype, device=device)])
     rho4 = rho[..., None, None]
     D = torch.diag_embed(Q)
-    # S'S (identity on the x-part) once per block
-    D = D + rho4 * torch.diag(eye_x)
+    # S'S (identity on the x-part) once per block: from the defect row t-1
+    # for t >= 1, from the initial-state row for t = 0, which the state
+    # estimator does not have
+    if state_estimator:
+        D = D + rho4 * F_nn.pad(torch.diag(eye_x).expand(T - 1, n, n), (0, 0, 0, 0, 1, 0))
+    else:
+        D = D + rho4 * torch.diag(eye_x)
     # F_t'F_t on blocks 0..T-2
     FtF = torch.einsum("btik,btil->btkl", F, F)
     D = D + rho4 * F_nn.pad(FtF, (0, 0, 0, 0, 0, 1))
-    # active control-box rows: diagonal on the u-part
-    act = active_u[..., :nu] + active_u[..., nu:]
-    D = D + rho4 * torch.diag_embed(F_nn.pad(act, (nx, 0)))
+    if u_lower is not None:
+        # active control-box rows: diagonal on the u-part
+        act = active_u[..., :nu] + active_u[..., nu:]
+        D = D + rho4 * torch.diag_embed(F_nn.pad(act, (nx, 0)))
     # active obstacle rows: a 3x3 on the xyz part
     if obs is not None:
         JoJo = torch.einsum("btk,btki,btkj->btij", active_obs, jac_obs, jac_obs)
@@ -175,7 +205,9 @@ def merit_grad_blocks(xu, Q, q, x0, lam, rho, F, u_lower, u_upper, dyn_eq_res,
     return g, D, O, torch.cat(res_parts, dim=1), torch.cat(res_c_parts, dim=1)
 
 
-def num_constraints(T: int, nx: int, nu: int, n_obs_sel: int = 0) -> int:
-    """Constraint count: T*nx eq rows, 2*nu*T control-box rows and
-    n_obs_sel*T obstacle rows."""
-    return T * nx + 2 * nu * T + n_obs_sel * T
+def num_constraints(T: int, nx: int, nu: int, n_obs_sel: int = 0,
+                    has_u_box: bool = True) -> int:
+    """Constraint count: T*nx eq rows (the state estimator's zero row
+    included), 2*nu*T control-box rows when there is a box and n_obs_sel*T
+    obstacle rows."""
+    return T * nx + (2 * nu * T if has_u_box else 0) + n_obs_sel * T

@@ -30,6 +30,11 @@ step) and returns them; the caller passes that set to `solve(...,
 obstacles=)`, which adds their rows to every Newton call and dual update
 of the solve. Nothing is stored on the solver between calls. The
 between-iteration cost refresh (`compute_Qq`) waits for a later slice.
+
+`state_estimator=True` is the MHE flavour (`al_mpc.py:77-91`): no
+initial-state row and no control box, in every Newton call, dual update
+and implicit backward; the duals hold the T*nx eq rows (one of them a
+zero row) and any obstacle rows.
 """
 from __future__ import annotations
 
@@ -84,7 +89,7 @@ class ALMPC:
                  dyn: Callable, dyn_jac: Callable, al_iter: int = 2, rho_max: float = 1e8,
                  max_newton_steps: int = 4, dyn_res_tol: float = 1e-3,
                  obstacles: Optional[ObstacleSet] = None, n_obs_sel: int = 4,
-                 dtype=torch.float32, device="cuda"):
+                 state_estimator: bool = False, dtype=torch.float32, device="cuda"):
         self.nx, self.nu, self.T = nx, nu, T
         self.n = nx + nu
         self.dtype = dtype
@@ -92,16 +97,18 @@ class ALMPC:
         self.al_iter = al_iter
         self.rho_max = rho_max
         kw = dict(dtype=dtype, device=self.device)
-        self.u_lower = torch.as_tensor(u_lower, **kw)
-        self.u_upper = torch.as_tensor(u_upper, **kw)
+        self.state_estimator = state_estimator
+        # the state estimator has no control box
+        self.u_lower = None if state_estimator else torch.as_tensor(u_lower, **kw)
+        self.u_upper = None if state_estimator else torch.as_tensor(u_upper, **kw)
         self.obstacles = None if obstacles is None else ObstacleSet(
             torch.as_tensor(obstacles.centers, **kw), float(obstacles.radius))
         self.n_obs_sel = n_obs_sel if obstacles is not None else 0
-        self.ncon = num_constraints(T, nx, nu, self.n_obs_sel)
+        self.ncon = num_constraints(T, nx, nu, self.n_obs_sel, has_u_box=not state_estimator)
         self.dyn = dyn
         self.dyn_jac = dyn_jac
         cfg = NewtonALConfig(nx=nx, nu=nu, T=T, max_newton_steps=max_newton_steps,
-                             dyn_res_tol=dyn_res_tol)
+                             dyn_res_tol=dyn_res_tol, state_estimator=state_estimator)
         self.newton = NewtonAL(cfg, dyn, dyn_jac, self.u_lower, self.u_upper)
 
     def init_state(self, bsz: int) -> ALState:
@@ -148,7 +155,7 @@ class ALMPC:
         and obstacle duals clamped at 0) and the uncapped penalty step."""
         nx, neq = self.nx, self.T * self.nx
         res, res_c = full_residuals(dyn, xu[..., :nx], xu[..., nx:], x0,
-                                    self.u_lower, self.u_upper, obs)
+                                    self.u_lower, self.u_upper, obs, self.state_estimator)
         lam_next = lam + rho * res
         lam_next = torch.cat([lam_next[:, :neq], torch.clamp(lam_next[:, neq:], min=0.0)],
                              dim=1)

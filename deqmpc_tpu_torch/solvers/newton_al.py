@@ -15,6 +15,10 @@ Port of `deqmpc_tpu/solvers/newton_al.py:58-233`. The forward:
   * the 20 step sizes 2^{0..-19} of the line search are evaluated in one
     batched merit call; NaN merits never win, and only improvements are
     accepted (`newton_al.py:130-147`);
+  * with `cfg.state_estimator` (the MHE flavour, `newton_al.py:70-96`)
+    there is no initial-state row (a zero row keeps the shapes) and no
+    S'S on block 0, in the merit, the residual norm, the assembly and the
+    implicit backward's (D, O); the caller passes u_lower None (no box);
   * the selected obstacles, an `ObstacleSet` or None, come with each call
     (`obs=`) and reach the merit, the residual norm, the assembly and the
     implicit backward's (D, O). JAX reads them through a closure over the
@@ -95,23 +99,26 @@ class NewtonAL:
     # -- pieces -----------------------------------------------------------------
     def _merit(self, xu, Q, q, x0, lam, rho, obs):
         return merit_function(self.dyn, xu, Q, q, x0, lam, rho,
-                              self.u_lower, self.u_upper, obs)
+                              self.u_lower, self.u_upper, obs, self.cfg.state_estimator)
 
     def _dyn_res_norm(self, xu, x0, obs):
         """Norm of the clamped residuals over the whole batch: the exit
         rule is global, as in the JAX package."""
         nx = self.cfg.nx
         _, res_c = full_residuals(self.dyn, xu[..., :nx], xu[..., nx:], x0,
-                                  self.u_lower, self.u_upper, obs)
+                                  self.u_lower, self.u_upper, obs, self.cfg.state_estimator)
         return torch.linalg.vector_norm(res_c)
 
     def _assemble(self, xu, Q, q, x0, lam, rho, obs):
         nx = self.cfg.nx
         x, u = xu[..., :nx], xu[..., nx:]
         x_next, F = self.dyn_jac(x[:, :-1], u[:, :-1])
-        r_eq = torch.cat([x[:, 1:] - x_next, (x[:, 0] - x0)[:, None]], dim=1)
+        defects = x[:, 1:] - x_next
+        last = (torch.zeros_like(defects[:, :1]) if self.cfg.state_estimator
+                else (x[:, 0] - x0)[:, None])
         return merit_grad_blocks(xu, Q, q, x0, lam, rho, F, self.u_lower,
-                                 self.u_upper, dyn_eq_res=r_eq, obs=obs)
+                                 self.u_upper, dyn_eq_res=torch.cat([defects, last], dim=1),
+                                 obs=obs, state_estimator=self.cfg.state_estimator)
 
     def _solve_newton_system(self, g, D, O):
         """Solve H x = -g; retry once with a jittered diagonal when the

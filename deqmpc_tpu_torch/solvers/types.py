@@ -67,3 +67,5 @@ class NewtonALConfig:
     fallback_jitter: float = 1e-4
     dyn_res_tol: float = 1e-3
     min_stepsz: float = 1e-8
+    # the MHE flavour: no initial-state row, no S'S on block 0
+    state_estimator: bool = False

@@ -20,7 +20,13 @@ sphere at some tick. The policy takes the checkpoint's `qp_solve`,
 `lastqp_solve` and `solver_type` (`eval.py:84-99`), so a diff-mpc
 checkpoint is served with its final solve; `--solver_type ip` serves the
 same weights through the interior-point solve (JAX's `train.py --eval
---solver_type ip`).
+--solver_type ip`). The policy variants are served where JAX's
+`eval_policy` serves them (`eval.py:51-130`): those whose forward takes
+the current state alone (mem, delta, feedback, q, and history at H = 1);
+estpred, which also reads the history's actions, and a history of more
+than one state are refused. An obstacle-aware checkpoint
+(`obstacle_net_input`, `checkpoints/flying_obstacles_aware_r5`) reads the
+env's field in its network as well as in its solver.
 
 CLI (`--ep_len` defaults to the env's `_max_episode_steps`: 100 ticks for
 RexQuadrotor and FlyingCartpole, 200 for the pendulum and the cartpole, as
@@ -32,6 +38,8 @@ at `--ep_len 360`):
       --episodes 100 --ep_len 360
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/pendulum_diffmpc_deq --episodes 100
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/pendulum_deqmpc --solver_type ip
+  python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/flying_obstacles_aware_r5 \
+      --episodes 64 --ep_len 360
 """
 from __future__ import annotations
 
@@ -83,6 +91,9 @@ def eval_policy(args: Dict, env, policy, n_episodes: int = 32,
     """Roll `n_episodes` episodes of `ep_len` ticks from seeded starts;
     `warm_start` None means `args["streaming"]`."""
     device = resolve_device(device)
+    if policy.takes_action_history or getattr(policy, "H", 1) > 1:
+        raise NotImplementedError("the closed loop gives the policy the current state alone: "
+                                  "estpred and histories of H > 1 are not served (as in JAX)")
     if ep_len is None:
         ep_len = env._max_episode_steps
     if warm_start is None:

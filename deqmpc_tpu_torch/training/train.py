@@ -23,6 +23,16 @@ the forward's `qp_solve` and `lastqp_solve` (`apply_model_type_presets`);
 with `--pretrain` the first PRETRAIN_STEPS steps run the network alone
 (both off), as JAX's gate does (`train.py:612-633`).
 
+The policy variants (`--policy_variant mem|delta|history|estpred|feedback|q`,
+`--addmem`, `--layer_type mlp`, `--deq_out_type 2`, `--H`,
+`--obstacle_net_input`; `train.py:297-330,655-664`): the history variants
+read batches of H-step histories (`obs` (bsz, H, nx)), estpred also their
+actions (`obs_action`) and its loss logs the state-estimate losses; after
+each Adam step of the delta variant its `scales`, which Adam has just
+updated with their straight-through gradient, are overwritten by the EMA
+of the rounds' median errors (`models/grad_layers.update_scales`), in
+that order.
+
   python -m deqmpc_tpu_torch.training.train --env pendulum --model_type deq-mpc-deq \\
       --T 5 --deq_iter 6 --hdim 256 --bsz 128 [--max_train_steps 300 --val_every 100] \\
       [--save --name pendulum_port --models_dir ./model] [--device cpu]
@@ -38,6 +48,8 @@ with `--pretrain` the first PRETRAIN_STEPS steps run the network alone
       --nq 7 --T 5 --hdim 256 --load --models_dir checkpoints --ckpt flying_diffmpc_deq
   python -m deqmpc_tpu_torch.training.train --env pendulum --solver_type ip --T 5 \\
       --deq_iter 6 --hdim 256 --bsz 128 [--qp_iter 1 --eps 1e-2 --ip_grad_method analytic]
+  python -m deqmpc_tpu_torch.training.train --env pendulum --policy_variant estpred --H 3 \\
+      --T 5 --deq_iter 6 --hdim 256 --bsz 128 [--save --name estpred_port]
   python -m deqmpc_tpu_torch.training.train ... --load --ckpt X --eval \\
       [--eval_episodes 32 --eval_ep_len 100 --eval_warm_start auto|on|off]
 
@@ -63,7 +75,9 @@ from .. import resolve_device
 from .. import utils
 from ..data import get_gt_data, merge_gt_data, sample_trajectory
 from ..envs import make_env
-from ..policies import build_policy, compute_loss_deqmpc
+from ..models.grad_layers import update_scales
+from ..policies import build_policy, compute_loss_deqmpc, compute_loss_deqmpc_hist
+from ..policies.deqmpc_policy import POLICY_VARIANTS
 from ..solvers import ObstacleSet
 from ..utils.checkpoint import (is_port_checkpoint, load_checkpoint, read_port_checkpoint,
                                 save_checkpoint)
@@ -123,16 +137,29 @@ def _window(batch, start: int, T: int):
 
 
 def _cold_forward(policy, batch, **mode):
-    obs = batch["obs"][:, -1] if batch["obs"].dim() == 3 else batch["obs"]
-    policy_out = policy.forward(obs, **mode)
-    return policy_out, compute_loss_deqmpc(policy, *_window(batch, 0, policy.T), policy_out,
-                                           x_init=policy_out["init_states"])
+    obs = batch["obs"]
+    if not policy.takes_history and obs.dim() == 3:
+        obs = obs[:, -1]
+    window = _window(batch, 0, policy.T)
+    if policy.takes_action_history:
+        policy_out = policy.forward(obs, batch["obs_action"], **mode)
+        d = compute_loss_deqmpc_hist(policy, window[0], window[1], batch["obs"], window[2],
+                                     policy_out, x_init=policy_out["init_states"])
+    else:
+        policy_out = policy.forward(obs, **mode)
+        d = compute_loss_deqmpc(policy, *window, policy_out, x_init=policy_out["init_states"])
+    if policy.is_delta:
+        # what the trainer's EMA of the output scales reads (`train.py:316-323`)
+        d["opt_states"] = torch.stack([t[1] for t in policy_out["trajs"]]).detach()
+        d["init_states"] = policy_out["init_states"].detach()
+    return policy_out, d
 
 
 def loss_fn(policy, batch: Dict[str, torch.Tensor], **mode) -> Dict[str, torch.Tensor]:
     """The forward and the loss of one batch (`make_train_step.loss_fn`),
-    on the first T states of its windows. `mode`: the forward's
-    `qp_solve`/`lastqp_solve`, by default the policy's."""
+    on the first T states of its windows (a history variant's forward
+    reads the window's history, estpred's also its actions). `mode`: the
+    forward's `qp_solve`/`lastqp_solve`, by default the policy's."""
     return _cold_forward(policy, batch, **mode)[1]
 
 
@@ -191,9 +218,9 @@ def make_loss_fn(streaming_steps: int = 0, pretrain: bool = False) -> Callable:
 def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
                timings: Optional[Dict[str, float]] = None,
                loss: Callable = loss_fn) -> Dict[str, torch.Tensor]:
-    """One training step: forward and `loss`, backward, clip, Adam. Returns
-    the loss, loss_end and the gradient norm before clipping as device
-    tensors. With `timings`, the device is synchronised after each part and
+    """One training step: forward and `loss`, backward, clip, Adam, and for
+    the delta variant the EMA of its scales. Returns the loss, loss_end and
+    the gradient norm before clipping as device tensors. With `timings`, the device is synchronised after each part and
     its host-clock seconds are stored under forward_s, backward_s and
     optimizer_s."""
     sync = (torch.cuda.synchronize if timings is not None and batch["obs"].is_cuda
@@ -208,6 +235,11 @@ def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
     t2 = time.perf_counter()
     gnorm = clip_by_global_norm_(list(policy.model.parameters()))
     optimizer.step()
+    if policy.is_delta and "opt_states" in d:
+        with torch.no_grad():
+            scales = policy.model.scales
+            scales.copy_(update_scales(scales, list(d["opt_states"]), batch["state"],
+                                       d["init_states"]))
     sync()
     if timings is not None:
         timings.update(forward_s=t1 - t0, backward_s=t2 - t1,
@@ -264,6 +296,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--streaming_steps", type=int, default=3)
     p.add_argument("--streaming_start_iter", type=int, default=0)
     p.add_argument("--linearize_once", action="store_true")
+    p.add_argument("--policy_variant", type=str, default="base", choices=POLICY_VARIANTS)
+    p.add_argument("--addmem", action="store_true", help="the mem variant")
+    p.add_argument("--layer_type", type=str, default="gcn", choices=["gcn", "mlp"])
+    p.add_argument("--deq_out_type", type=int, default=1,
+                   help="2: the history variant's joint state and action output (mlp)")
+    p.add_argument("--H", type=int, default=1, help="the history variants' window")
+    p.add_argument("--obstacle_net_input", action="store_true",
+                   help="the network reads the nearest spheres of each knot")
+    # multi and broyden wait for a later slice: build_policy refuses them
+    p.add_argument("--fp_type", type=str, default="anderson",
+                   choices=["single", "multi", "broyden", "anderson"])
     p.add_argument("--eval", action="store_true",
                    help="evaluate the loaded policy in closed loop instead of training")
     p.add_argument("--eval_episodes", type=int, default=32)
@@ -307,10 +350,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     # the JAX CLI's defaults of the flags the port does not take, then the
     # model type's presets
     vars(args).update(
-        deq_type="deq", dtype="float32", rho_max=None,
-        layer_type="gcn", kernel_width=3, m=5, max_steps=10, deq_reg=0.1, loss_type="l1",
-        policy_out_type=1, deq_out_type=1, fp_type="anderson", grad_type="fp_grad",
-        rho_init_max=1e4)
+        deq_type="deq", dtype="float32", rho_max=None, kernel_width=3, m=5, max_steps=10,
+        deq_reg=0.1, loss_type="l1", policy_out_type=1, rho_init_max=1e4)
     return apply_model_type_presets(args)
 
 
@@ -354,11 +395,13 @@ def main(argv=None) -> Dict:
         return stats
     gt, val_gt = split_episodes(get_gt_data(env, args.teacher))
     rng = np.random.default_rng(args.seed)
-    # windows of a one-step history (H = 1): the policy sees the current
-    # state; a streaming step reads T + L states
+    # windows of an H-step history (the policy sees the current state, or
+    # the history variants the whole window); a streaming step reads T + L
+    # states
     horizon = args.T + args.streaming_steps * int(args.streaming)
     val_samples = [to_device(preprocess_batch(args.env, env.nx,
-                                              sample_trajectory(val_gt, args.bsz, 1, horizon, rng)),
+                                              sample_trajectory(val_gt, args.bsz, args.H,
+                                                                horizon, rng)),
                              device)
                    for _ in range(10)]
     name = args.name or (f"{args.model_type}_{args.env}_T{args.T}_bsz{args.bsz}"
@@ -383,7 +426,7 @@ def main(argv=None) -> Dict:
             loss = make_loss_fn()
             print(f"[{i}] pretrain done: switching deq -> deqmpc", flush=True)
         batch = preprocess_batch(args.env, env.nx,
-                                 sample_trajectory(gt, args.bsz, 1, horizon, rng))
+                                 sample_trajectory(gt, args.bsz, args.H, horizon, rng))
         out = train_step(policy, optimizer, to_device(batch, device), loss=loss)
         losses.append(out["loss"])
         losses_end.append(out["loss_end"])
@@ -407,6 +450,7 @@ def main(argv=None) -> Dict:
         losses, losses_end = [], []
         t_window = time.perf_counter()
     result = {"env": args.env, "model_type": args.model_type, "solver_type": args.solver_type,
+              "policy_variant": "mem" if args.addmem else args.policy_variant,
               "steps": args.max_train_steps, "bsz": args.bsz,
               "hdim": args.hdim, "deq_iter": args.deq_iter, "total_deq_iter": total_deq_iter,
               "streaming_steps": args.streaming_steps if args.streaming else 0,

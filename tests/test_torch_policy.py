@@ -140,8 +140,8 @@ def test_entry_points_raise_without_a_card_when_no_device_is_given(monkeypatch):
 
 def test_build_policy_refuses_what_is_not_ported():
     _, args = load_checkpoint(CKPT, "cpu")
-    with pytest.raises(NotImplementedError, match="policy_variant"):
-        build_policy({**args, "policy_variant": "mem"}, make_env("rexquadrotor"), "cpu")
+    with pytest.raises(NotImplementedError, match="fp_type"):
+        build_policy({**args, "fp_type": "broyden"}, make_env("rexquadrotor"), "cpu")
 
 
 def test_port_imports_no_jax():
@@ -151,8 +151,9 @@ def test_port_imports_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
         for p in (REPO / "deqmpc_tpu_torch").rglob("*.py"))
     assert {"deqmpc_tpu_torch.ops.block_tridiag", "deqmpc_tpu_torch.solvers.pdipm",
-            "deqmpc_tpu_torch.solvers.ip_mpc", "deqmpc_tpu_torch.policies.nn_policy"
-            } <= set(modules)
+            "deqmpc_tpu_torch.solvers.ip_mpc", "deqmpc_tpu_torch.policies.nn_policy",
+            "deqmpc_tpu_torch.models.deq_layer_variants", "deqmpc_tpu_torch.models.grad_layers",
+            "deqmpc_tpu_torch.policies.policy_variants"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"

@@ -440,7 +440,7 @@ def test_train_cli_saves_a_checkpoint_that_eval_reads(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model_type", "diff-mpc-deq", "--layer_type", "mlp"], "layer_type"),
+    (["--model_type", "diff-mpc-deq", "--fp_type", "multi"], "fp_type"),
     (["--recompute_Qq"], "not ported"),
     (["--dtype", "double"], "not ported"),
 ])

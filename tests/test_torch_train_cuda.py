@@ -379,3 +379,60 @@ def test_diffmpc_backward_at_rho_max_turns_on_the_active_set(monkeypatch):
     assert grad_gap <= SENSITIVITY_FACTOR * JAX_GRADIENT_JUMP
     if not bool(moved.any()):
         assert grad_gap <= 1e-5
+
+
+# -- the policy variants: a delta step (its scales' EMA included) and an
+# estpred step (the MHE estimator's solves on the card) -------------------------
+
+def _variant_step(variant, H, seed=2):
+    """One f64 training step of a fresh pendulum variant policy (hdim 32,
+    N 2, rho_max 1e3) on the card and on the CPU from the same weights: the
+    loss and the gradients, then the step (Adam, and for delta the EMA of
+    its scales)."""
+    from deqmpc_tpu_torch.policies import build_policy
+
+    env = make_env("pendulum")
+    args = {"T": 5, "nq": 1, "hdim": 32, "deq_iter": 2, "policy_variant": variant, "H": H,
+            "dtype": "double", "rho_max": 1e3}
+    state = build_policy(args, env, "cpu").init(seed).model.state_dict()
+    rng = np.random.default_rng(seed)
+    obs = np.stack([rng.uniform(0, 2 * np.pi, (8, H)), rng.uniform(-1, 1, (8, H))], axis=-1)
+    batch = {"obs": obs, "obs_action": rng.normal(size=(8, H, 1)),
+             "state": obs[:, -1:] + 0.1 * rng.normal(size=(8, 5, 2)),
+             "action": rng.normal(size=(8, 5, 1)), "mask": np.ones((8, 5))}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pol = build_policy(args, env, dev)
+        pol.model.double()
+        pol.model.load_state_dict({k: v.to(dev) for k, v in state.items()})
+        tb = train.to_device(batch, dev, torch.float64)
+        launches = dict(bt.block_tridiag_solve.launches_by_kernel)
+        d = train.loss_fn(pol, tb)
+        d["loss"].backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            by = bt.block_tridiag_solve.launches_by_kernel
+            assert by["warp"] - launches["warp"] == (pol.newton_steps + pol.newton_retries
+                                                     + pol.backward_solves)
+            assert by["block"] == launches["block"]
+        grads = {k: p.grad.cpu() for k, p in pol.model.named_parameters() if p.grad is not None}
+        train.train_step(pol, train.make_optimizer(pol), tb)  # the step, from the same weights
+        out[dev] = (float(d["loss"]), grads, pol)
+    return out
+
+
+@pytest.mark.parametrize("variant,H", [("delta", 1), ("estpred", 3)])
+def test_variant_train_step_on_card_matches_cpu(variant, H):
+    (l_card, g_card, pol), (l_cpu, g_cpu, pol_cpu) = _variant_step(variant, H).values()
+    assert np.isclose(l_card, l_cpu, rtol=1e-6, atol=0)
+    assert set(g_card) == set(g_cpu)
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_card[k], g, rtol=1e-5, atol=1e-5 * float(g.abs().max()),
+                                   msg=k)
+    if variant == "delta":  # the scales after Adam and the EMA
+        torch.testing.assert_close(pol.model.scales.detach().cpu(), pol_cpu.model.scales.detach(),
+                                   rtol=1e-6, atol=1e-9)
+    else:
+        # the estimator's Newton steps retried (its last block is singular on
+        # the controls), on the card as on the CPU
+        assert pol.newton_retries > 0 and pol_cpu.newton_retries > 0
