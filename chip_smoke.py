@@ -123,10 +123,26 @@ Phases, each announced on a line of its own with the seconds since start:
      retries, first solves' NaN share) against the plain solve;
  24. serve the variants JAX's eval serves (mem, delta, feedback, q): the
      train CLI trains each one step on the card and writes its port
-     checkpoint, served as phases 12-14 for VARIANT_TICKS ticks.
+     checkpoint, served as phases 12-14 for VARIANT_TICKS ticks;
+ 25-26. train config #4 from its checkpoint with `--grad_type implicit` (the
+     true DEQ gradient) and with `--recompute_Qq` (the cost refresh) as
+     config #4, with the rounds' solver stats per step: for implicit the
+     sign flip and the one-step adjoint (w = g) rejected, the latter by the
+     f64 gradient vector (VECTOR_FAULTS); for the refresh, which leaves no
+     implicit backward to run, the refresh dropped rejected;
+ 27-28. serve `rexquad_deqmpc` with the refresh and with the bf16 trunk
+     through `serve_config`'s args update, TICKS closed-loop ticks; for
+     bf16 also the trunk's one application card vs CPU within
+     BF16_TRUNK_TOL, which the card's f32 trunk must fail (its f64 tick 0
+     printed, not held: the f64 policy's matmuls still round to bf16);
+ 29. train config #1 from a seeded fresh init under each of SLICE8_FLAGS
+     (Broyden, Broyden implicit, multi last-step, multi BPTT, bf16,
+     `--grad_coeff --val_every 1`: the step-0 ratios card vs CPU in f64 and
+     the coefficients after each step);
+ 30. train config #3 with `Qscale` 2.
 Phase 3 also holds the kernels at the estimator's shape (128,3,3) and at
 T = 1, (128,1,3) and (32,1,16).
-Phases 1-3 run first, alone. Phases 4-10 and 12-24 then run in the
+Phases 1-3 run first, alone. Phases 4-10 and 12-30 then run in the
 worker processes of LANES, six at once, each lane's phases in turn
 (each keeps the card idle over 95% of its time, so they share it);
 their times are taken under that sharing. Phase 11 runs last, alone.
@@ -144,7 +160,10 @@ serve_flying, serve_flying_obstacles, train_cartpole, train_flying,
 serve_pendulum_diffmpc, serve_flying_diffmpc, train_diffmpc, serve_ip,
 train_ip, serve_flying_aware, train_variants_{mem, delta, history,
 estpred, feedback, q, history_joint}, serve_variants_{mem, delta,
-feedback, q}.
+feedback, q}, train_rexquad_implicit, train_rexquad_recompute,
+serve_rexquad_recompute, serve_rexquad_bf16, train_slice8_{broyden,
+broyden_implicit, multi_last_step, multi_bptt, bf16, grad_coeff},
+train_flying_qscale.
 """
 import argparse
 import concurrent.futures
@@ -192,9 +211,10 @@ TRAIN_BSZ, TRAIN_STEPS, PENDULUM_TRAIN_STEPS = 128, 3, 5
 STREAM_STATES, STREAM_WARM_TICKS = 4, 2
 STREAM_EPISODES, STREAM_TICKS = 32, 10
 BENCH_FLEET, BENCH_REPS = 256, 3
-# configs #2, #3 and #3b: the tick-0 states and the closed loop; in #3b's
-# tick-0 check the first OBSTACLE_STARTS states start beside a sphere
-NEW_EPISODES, NEW_TICKS, OBSTACLE_STARTS = 32, 20, 8
+# configs #2, #3 and #3b: the tick-0 states and the closed loop (10 ticks, 20
+# before slice 8's phases joined the lanes, to keep the smoke's time); in
+# #3b's tick-0 check the first OBSTACLE_STARTS states start beside a sphere
+NEW_EPISODES, NEW_TICKS, OBSTACLE_STARTS = 32, 10, 8
 SERVE_SHAPE = (EPISODES, 5, 16)  # the solve's shape on the served path
 TRACE_WAIT_S = 0.05  # the profiler's wait before a traced call and after its sync
 # the solve's shape in the config-#4 and config-#5 training steps, forward
@@ -520,7 +540,7 @@ def policy_in(build_policy, args, env, dev, dtype, obstacles=None):
 
 
 def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np, loss=None,
-                 sensitivity=True, planted=True, faults=()):
+                 sensitivity=True, planted=True, faults=(), grad_coeff=False):
     """A training step of a checkpoint's configuration (#4, #2 or #3; #5
     with the streaming `loss`; the diff-mpc arm; #1 with the interior-point
     solve, or a policy variant, from a fresh `state`): step 0 on the card
@@ -530,7 +550,15 @@ def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np,
     NewtonAL backward's signs flipped, and so for each of `faults`, (name,
     plant(policy) -> undo); then TRAIN_STEPS steps on the card (the main
     path) and one profiled step. For the delta variant, the scales after
-    the f64 step 0 (Adam, then their EMA), card vs CPU."""
+    the f64 step 0 (Adam, then their EMA), card vs CPU. Each step records
+    the rounds' solver stats (`deq_stats`) where the network runs a solver.
+    With `grad_coeff` (`--grad_coeff --val_every 1`), the ratios at the
+    starting weights card vs CPU in f64 and, after each of the TRAIN_STEPS
+    steps, the ratios on the same batch and the coefficients' EMA, which the
+    next step takes (their solves counted with the step's)."""
+    from deqmpc_tpu_torch.training.grad_coeffs import (compute_grad_ratio_coeffs,
+                                                       update_coeffs_ema)
+
     loss = loss or train.loss_fn
 
     def fresh(dev, dtype=torch.float32):
@@ -551,7 +579,17 @@ def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np,
             if undo is not None:
                 undo()
         out = {"loss": float(res["loss"]), "grad_norm": float(res["grad_norm"]),
-               "s": time.perf_counter() - t}
+               "s": time.perf_counter() - t, **stats_of(res)}
+        if dtype == torch.float64:  # the clipped gradient, for vector gaps
+            out["grad_vec"] = torch.cat([q.grad.detach().double().cpu().flatten()
+                                         for q in p.model.parameters() if q.grad is not None])
+        if grad_coeff and plant is None and dtype == torch.float64:
+            # the ratios at the starting weights: after Adam's first step,
+            # about lr * sign(g) on every weight, a gradient entry's sign that
+            # rounding flips would move the weights by 2 lr
+            p0, _ = fresh(dev, dtype)
+            out["ratios"] = compute_grad_ratio_coeffs(
+                p0, train.to_device(b, dev, dtype), qp_solve=p0.cfg.qp_solve)[0].cpu().tolist()
         if scales and p.is_delta:  # after Adam and the EMA
             out["scales"] = p.model.scales.detach().cpu().double()
         return out
@@ -576,9 +614,22 @@ def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np,
             undo()
         out["step0_gap_planted_sign_flip_f64"] = gaps(out["card_step0_f64_planted_sign_flip"],
                                                       out["cpu_step0_f64"])
+    def vector_gap(a):
+        ref = out["cpu_step0_f64"]["grad_vec"]
+        return float(torch.linalg.vector_norm(a["grad_vec"] - ref) / torch.linalg.vector_norm(ref))
+
+    out["step0_grad_vector_gap_card_vs_cpu_f64"] = vector_gap(out["card_step0_f64"])
     for name, plant in faults:
-        out.setdefault("planted_f64", {})[name] = gaps(step0("cuda", torch.float64, plant=plant),
-                                                       out["cpu_step0_f64"])
+        bad = step0("cuda", torch.float64, plant=plant)
+        out.setdefault("planted_f64", {})[name] = {**gaps(bad, out["cpu_step0_f64"]),
+                                                   "grad_vector": vector_gap(bad)}
+    if grad_coeff:
+        r_card, r_cpu = (np.asarray(out[k]["ratios"]) for k in ("card_step0_f64",
+                                                                "cpu_step0_f64"))
+        out["step0_ratios_gap_card_vs_cpu_f64"] = float(np.max(np.abs(r_card - r_cpu)
+                                                               / np.abs(r_cpu)))
+    for key in [k for k in out if isinstance(out[k], dict) and "grad_vec" in out[k]]:
+        del out[key]["grad_vec"]
     if "scales" in out["cpu_step0_f64"]:
         out["delta_scales_after_step0_f64_max_abs_gap"] = float(
             (out["card_step0_f64"].pop("scales") - out["cpu_step0_f64"].pop("scales")).abs().max())
@@ -590,16 +641,22 @@ def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np,
     reset_counts(bt)
     steps = []
     newton = policy.newton_solver
+    coeffs = torch.ones((policy.cfg.deq_iter, 3), device="cuda") if grad_coeff else None
     for _ in range(TRAIN_STEPS):
         c0, by0 = policy_counts(policy), dict(bt.block_tridiag_solve.launches_by_kernel)
         z0, n0 = float(newton.backward_zeroed), newton.backward_samples
         timings = {}
         t = time.perf_counter()
-        res = train.train_step(policy, opt, batch, timings=timings, loss=loss)
+        res = train.train_step(policy, opt, batch, timings=timings, loss=loss, coeffs=coeffs)
         step_s = time.perf_counter() - t  # train_step synchronised the card
+        extra = {}
+        if grad_coeff:
+            ratios = compute_grad_ratio_coeffs(policy, batch, qp_solve=policy.cfg.qp_solve)[0]
+            coeffs = update_coeffs_ema(coeffs, ratios)
+            extra = {"ratios": ratios.cpu().tolist(), "coeffs": coeffs[:, 0].cpu().tolist()}
         c1 = policy_counts(policy)
         steps.append({"loss": float(res["loss"]), "grad_norm": float(res["grad_norm"]),
-                      "step_s": step_s, **timings,
+                      "step_s": step_s, **timings, **stats_of(res), **extra,
                       "zeroed_share": (float(newton.backward_zeroed) - z0)
                       / max(newton.backward_samples - n0, 1),
                       **{k: c1[k] - c0[k] for k in c1},
@@ -624,6 +681,23 @@ def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np,
     out["profiled_step"] = profiled(bt, lambda: train.train_step(policy, opt, batch, loss=loss),
                                     f"a profiled {args['env']} training step")
     return out
+
+
+# planted faults that move the gradient's direction more than its norm: the
+# one-step adjoint (w = g) of config #4's implicit step moved the f64 gradient
+# norm by 1.4% on an H100 (the cell contracts fast), under STEP0_RTOL's 5e-2,
+# and the whole f64 gradient vector by 27.6%, where the card moved it from
+# the CPU by 3.6% (relative norm of the difference; half the backward's
+# samples are zeroed, and which half turns on rounding). Such a phase holds
+# the f64 gradient vector, card vs CPU, within VECTOR_GAP_TOL, and the fault
+# must move it beyond
+VECTOR_FAULTS = ("implicit_one_step_adjoint",)
+VECTOR_GAP_TOL = 0.1
+
+
+def stats_of(res):
+    """A step's rounds' solver stats, as lists, where it has them."""
+    return {f"deq_{k}": v.cpu().tolist() for k, v in res.get("deq_stats", {}).items()}
 
 
 def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64), backward=None):
@@ -670,6 +744,12 @@ def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64), bac
     check(planted is None or planted["grad_norm"] > STEP0_RTOL[torch.float64]["grad_norm"],
           f"{what}: the f64 step-0 check passed a planted fault: {planted}")
     for name, gap in tr.get("planted_f64", {}).items():
+        if name in VECTOR_FAULTS:  # held by the f64 gradient vector
+            vec = tr["step0_grad_vector_gap_card_vs_cpu_f64"]
+            check(vec <= VECTOR_GAP_TOL < gap["grad_vector"],
+                  f"{what}: the f64 gradient vector, card vs CPU {vec}, beyond "
+                  f"{VECTOR_GAP_TOL}, or the planted fault ({name}) within it: {gap}")
+            continue
         check(any(gap[k] > lim for k, lim in STEP0_RTOL[torch.float64].items()),
               f"{what}: the f64 step-0 check passed a planted fault ({name}): {gap}")
 
@@ -922,7 +1002,7 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None, ticks=NEW_TI
     is recorded at tick 0 and in the closed loop."""
     state, args = m.load_checkpoint(ckpt, "cuda")
     args = {**args, **(args_update or {})}
-    env = m.make_env(args["env"])
+    env = m.make_env_of(args)
     obstacles = m.build_obstacles(env)
     policy = m.build_policy(args, env, "cuda", obstacles=obstacles)
     policy.model.load_state_dict(state)
@@ -1001,6 +1081,10 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None, ticks=NEW_TI
                     out["gaps"]["planted_fault_O_transposed"] = out["planted"][name]["gap"]
                 print(f"[chip_smoke]   planted fault {name}: tick-0 action gap "
                       f"{json.dumps(out['planted'][name]['gap'])}", flush=True)
+    if cfg.compute_dtype is not None:
+        out["bf16_trunk"] = bf16_trunk_gaps(policy, state, x0)
+        print(f"[chip_smoke]   bf16 trunk, card vs CPU: {json.dumps(out['bf16_trunk'])}",
+              flush=True)
     if cfg.solver_type == "al":  # the interior-point solve makes no block-tridiagonal solve
         check(systems, f"{ckpt}: no Newton system recorded at tick 0")
         out["served_systems"] = check_served_systems(bt, tridiag, systems, torch.float32)
@@ -1034,16 +1118,58 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None, ticks=NEW_TI
     return out
 
 
+# the bf16 trunk's one application (input encoder, one cell application, head;
+# no fixed-point solve to amplify rounding), card vs CPU, relative norm of
+# the gap in z and x_ref. On an H100, served rexquad_deqmpc's 32 start states:
+# 8.9e-5 (x_ref) and 1.9e-4 (z), both in bf16 and rounded op by op, the
+# products summed in other orders; the card's f32 trunk against the CPU's
+# bf16 (planted), which must exceed the limit: 1.9e-3 and 4.0e-3
+BF16_TRUNK_TOL = 1e-3
+
+
+def bf16_trunk_gaps(policy, state, x0):
+    """The bf16 network's one application on the served start states: card
+    bf16 against CPU bf16, and the card's f32 trunk against CPU bf16 (the
+    planted fault). z0 is seeded, the carried trajectory the state tiled."""
+    from deqmpc_tpu_torch.models.deq_layer import DEQLayer
+
+    cfg = dataclasses.replace(policy.model.cfg, fp_type="single")
+    bsz = x0.shape[0]
+    z0 = 0.3 * torch.randn((bsz, cfg.T - 1, cfg.hdim), generator=torch.Generator().manual_seed(2))
+    outs = {}
+    for name, dev, dt in (("card", "cuda", cfg.compute_dtype), ("cpu", "cpu", cfg.compute_dtype),
+                          ("card_f32", "cuda", None)):
+        layer = DEQLayer(dataclasses.replace(cfg, compute_dtype=dt)).to(dev)
+        layer.load_state_dict({k: v.to(dev) for k, v in state.items()})
+        x = x0.to(dev, torch.float32)
+        with torch.no_grad():
+            o, z = layer(x, x[:, None].expand(bsz, cfg.T, cfg.nx).contiguous(), z0.to(dev))
+        outs[name] = {"x_ref": o["x_ref"].double().cpu(), "z": z.double().cpu()}
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    return {f"{key}_{what}": rel(outs[what][key], outs["cpu"][key])
+            for key in ("x_ref", "z") for what in ("card", "card_f32")}
+
+
 def check_served(sv, ckpt):
     """The checks of a served configuration (`serve_config`): tick 0 card vs
     CPU within ACTION_TOL, every planted fault rejected, a finite closed
     loop, every solve through the warp kernel (with the interior-point
     solve: no block-tridiagonal solve, dense solves every tick)."""
-    for dtype in (torch.float32, torch.float64):
+    # with bf16 matmuls the f64 policy still rounds them to bf16: its tick 0
+    # is printed, held by the f32 limits and the trunk check
+    for dtype in (torch.float32,) if "bf16_trunk" in sv else (torch.float32, torch.float64):
         check(gap_within(sv["gaps"][str(dtype)], dtype),
               f"{ckpt} tick-0 actions, card vs CPU ({dtype}): {sv['gaps'][str(dtype)]} "
               f"beyond {ACTION_TOL[dtype]}")
     check(sv["planted"], f"{ckpt}: no planted fault")
+    if "bf16_trunk" in sv:
+        g = sv["bf16_trunk"]
+        check(all(g[f"{k}_card"] < BF16_TRUNK_TOL < g[f"{k}_card_f32"] for k in ("x_ref", "z")),
+              f"{ckpt}: bf16 trunk card vs CPU beyond {BF16_TRUNK_TOL}, or the f32 trunk "
+              f"(planted) within it: {g}")
     for name, p in sv["planted"].items():
         dtype = torch.float32 if p["dtype"] == str(torch.float32) else torch.float64
         check(not gap_within(p["gap"], dtype),
@@ -1163,7 +1289,7 @@ class Ctx(types.SimpleNamespace):
     @staticmethod
     def make():
         from deqmpc_tpu_torch import data
-        from deqmpc_tpu_torch.envs import make_env
+        from deqmpc_tpu_torch.envs import make_env, make_env_of
         from deqmpc_tpu_torch.ops import block_tridiag, tridiag
         from deqmpc_tpu_torch.policies import DEQMPCPolicy, PolicyCarry, build_policy
         from deqmpc_tpu_torch.solvers import newton_al
@@ -1172,7 +1298,8 @@ class Ctx(types.SimpleNamespace):
         from deqmpc_tpu_torch.training.eval import card_info, eval_policy
         from deqmpc_tpu_torch.utils.checkpoint import load_checkpoint
 
-        c = Ctx(data=data, make_env=make_env, bt=block_tridiag, tridiag=tridiag,
+        c = Ctx(data=data, make_env=make_env, make_env_of=make_env_of, bt=block_tridiag,
+                tridiag=tridiag,
                 DEQMPCPolicy=DEQMPCPolicy, PolicyCarry=PolicyCarry, build_policy=build_policy,
                 newton_al=newton_al, obstacle_residuals=obstacle_residuals,
                 bench_streaming=bench_streaming, train=train, card_info=card_info,
@@ -1371,12 +1498,12 @@ def phase_train_streaming(c):
     return tr5, tr5["counts"]
 
 
-def phase_serve_new(ckpt, args_update=None):
+def phase_serve_new(ckpt, args_update=None, ticks=NEW_TICKS):
     """Serve config #2, #3 or #3b, a diff-mpc arm, or a checkpoint with
-    `args_update` (`serve_config`)."""
+    `args_update` (`serve_config`), `ticks` closed-loop ticks."""
     def run(c):
-        phase(f"serve: {ckpt}", episodes=NEW_EPISODES, ticks=NEW_TICKS, **(args_update or {}))
-        sv = serve_config(ckpt, c.bt, c.tridiag, c.newton_al, c, args_update)
+        phase(f"serve: {ckpt}", episodes=NEW_EPISODES, ticks=ticks, **(args_update or {}))
+        sv = serve_config(ckpt, c.bt, c.tridiag, c.newton_al, c, args_update, ticks=ticks)
         cl = sv["closed_loop"]
         for row in cl["per_tick"]:
             print(f"[chip_smoke]   tick {json.dumps(row)}", flush=True)
@@ -1386,13 +1513,16 @@ def phase_serve_new(ckpt, args_update=None):
     return run
 
 
-def phase_train_new(ckpt, teacher):
+def phase_train_new(ckpt, teacher, args_update=None):
     """Train config #2 or #3, or the diff-mpc arm of #3, from its checkpoint
-    on its teacher's data."""
+    on its teacher's data, its args updated by `args_update` (#3 with
+    `Qscale` 2)."""
     def run(c):
         state, args = c.load_checkpoint(ckpt, "cuda")
-        env = c.make_env(args["env"])
-        phase(f"train: {ckpt}", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, teacher=teacher)
+        args = {**args, **(args_update or {})}
+        env = c.make_env_of(args)
+        phase(f"train: {ckpt}", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, teacher=teacher,
+              **(args_update or {}))
         tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, state, args,
                           env, c.expert_batch(args["env"], env, 3, args["T"], teacher),
                           sensitivity=False)
@@ -1685,6 +1815,98 @@ def phase_serve_variant(name):
     return run
 
 
+def plant_one_step_adjoint(p):
+    """The implicit backward's planted fault: the transpose fixed point
+    replaced by w = g (the one-step gradient)."""
+    from deqmpc_tpu_torch.models import deq_layer
+
+    good = deq_layer.adjoint_solve
+    deq_layer.adjoint_solve = lambda vjp_z, g, solver, kw: g
+    return lambda: setattr(deq_layer, "adjoint_solve", good)
+
+
+def plant_refresh_dropped(p):
+    """The cost refresh's planted fault: the plain solve, no refresh."""
+    cfg = p.cfg
+    p.cfg = dataclasses.replace(cfg, recompute_Qq=False)
+    return lambda: setattr(p, "cfg", cfg)
+
+
+def phase_train_rexquad_with(name, update, faults, planted, backward):
+    """Config #4 from its checkpoint with `update` in its args (the true
+    DEQ gradient, or the cost refresh), as config #4 (`train_config`): the
+    f64 step 0 card vs CPU, the planted `faults` (and, with `planted`, the
+    sign flip) rejected by it, TRAIN_STEPS steps with their solves and
+    solver stats, one profiled step; `backward` implicit-backward solves a
+    step."""
+    def run(c):
+        args = {**c.args, **update}
+        phase(f"train: config #4 {name}", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, **update)
+        tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, c.state, args, c.env,
+                          c.expert_batch(args["env"], c.env, 0, args["T"]), sensitivity=False,
+                          planted=planted, faults=faults)
+        for s_ in tr["steps"]:
+            print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+        phase(f"train: config #4 {name} done", **{k: v for k, v in tr.items() if k != "steps"})
+        check_train(tr, f"config-#4 {name} training", backward=backward)
+        check(len(tr.get("planted_f64", {})) == len(faults), f"{name}: planted {tr}")
+        check(all(len(s_["deq_fwd_err"]) == tr["deq_iter"] for s_ in tr["steps"]),
+              f"{name}: the rounds' solver stats are missing")
+        return tr, tr["counts"]
+    return run
+
+
+# config #1 from a seeded fresh init with the fixed-point, dtype and
+# coefficient options of the train CLI
+SLICE8_FLAGS = {"broyden": ["--fp_type", "broyden"],
+                "broyden_implicit": ["--fp_type", "broyden", "--grad_type", "implicit"],
+                "multi_last_step": ["--fp_type", "multi", "--grad_type", "last_step_grad"],
+                "multi_bptt": ["--fp_type", "multi"],
+                "bf16": ["--compute_dtype", "bf16"],
+                "grad_coeff": ["--grad_coeff", "--val_every", "1"]}
+
+
+def phase_train_slice8(name):
+    """Config #1 (pendulum, full width, bsz TRAIN_BSZ) from a seeded fresh
+    init under one of SLICE8_FLAGS, as config #4 (`train_config`): step 0
+    card vs CPU, the sign flip rejected, TRAIN_STEPS steps with their solver
+    stats; with --grad_coeff the ratios at the starting weights card vs CPU
+    in f64 (within the f64 gradient-norm limit) and the coefficients after
+    each step. The
+    bf16 step is held in f32 only (in f64 its matmuls still round to bf16)."""
+    def run(c):
+        args = vars(c.train.parse_args(["--env", "pendulum", "--T", "5", "--deq_iter", "6",
+                                        "--hdim", "256", "--bsz", str(TRAIN_BSZ),
+                                        *SLICE8_FLAGS[name]]))
+        env = c.make_env("pendulum")
+        state = c.build_policy(args, env, "cpu").init(7).model.state_dict()
+        phase(f"train: slice 8 {name}", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
+        bf16 = name == "bf16"
+        tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, state, args, env,
+                          c.expert_batch("pendulum", env, 7, args["T"]), sensitivity=False,
+                          planted=not bf16, grad_coeff=args["grad_coeff"])
+        for s_ in tr["steps"]:
+            print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+        phase(f"train: slice 8 {name} done", **{k: v for k, v in tr.items() if k != "steps"})
+        n = tr["deq_iter"]
+        # with the coefficients, each step's ratios add round j's probe of
+        # rounds 0..j to the step's n backward solves
+        check_train(tr, f"slice-8 {name} training",
+                    dtypes=(torch.float32,) if bf16 else (torch.float32, torch.float64),
+                    backward=n + (n * (n + 1) // 2 if args["grad_coeff"] else 0))
+        multi = args["fp_type"] == "multi"
+        check(all(("deq_fwd_err" in s_) != multi for s_ in tr["steps"]),
+              f"slice-8 {name}: solver stats {tr['steps']}")
+        if args["grad_coeff"]:
+            gap = tr["step0_ratios_gap_card_vs_cpu_f64"]
+            check(gap <= STEP0_RTOL[torch.float64]["grad_norm"],
+                  f"slice-8 {name}: step-0 ratios (f64), card vs CPU: {gap}")
+            check(all(np.isfinite(s_["coeffs"]).all() for s_ in tr["steps"]),
+                  f"slice-8 {name}: coefficients {tr['steps']}")
+        return tr, tr["counts"]
+    return run
+
+
 PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rexquad,
           "train_pendulum": phase_train_pendulum, "serve_pendulum": phase_serve_pendulum,
           "serve_streaming": phase_serve_streaming, "train_streaming": phase_train_streaming,
@@ -1700,7 +1922,19 @@ PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rex
           "train_ip": phase_train_ip,
           "serve_flying_aware": phase_serve_new(AWARE_CKPT),
           **{f"train_variants_{n}": phase_train_variant(n) for n in VARIANT_FLAGS},
-          **{f"serve_variants_{n}": phase_serve_variant(n) for n in SERVED_VARIANTS}}
+          **{f"serve_variants_{n}": phase_serve_variant(n) for n in SERVED_VARIANTS},
+          "train_rexquad_implicit": phase_train_rexquad_with(
+              "implicit", {"grad_type": "implicit"},
+              [("implicit_one_step_adjoint", plant_one_step_adjoint)], planted=True, backward=6),
+          # under the refresh the last AL iteration's Newton call tracks a
+          # detached cost: no implicit backward runs, so no sign flip to plant
+          "train_rexquad_recompute": phase_train_rexquad_with(
+              "recompute_Qq", {"recompute_Qq": True},
+              [("refresh_dropped", plant_refresh_dropped)], planted=False, backward=0),
+          "serve_rexquad_recompute": phase_serve_new(CKPT, {"recompute_Qq": True}, ticks=TICKS),
+          "serve_rexquad_bf16": phase_serve_new(CKPT, {"compute_dtype": "bf16"}, ticks=TICKS),
+          **{f"train_slice8_{n}": phase_train_slice8(n) for n in SLICE8_FLAGS},
+          "train_flying_qscale": phase_train_new(FLYING_CKPT, "mpc", {"Qscale": 2.0})}
 # The phases run in LANES worker processes at once, each lane's in turn: a
 # phase keeps the card idle over 95% of its time (its host dispatches the
 # ops one by one), so three host threads share the card with little
@@ -1708,16 +1942,19 @@ PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rex
 # balanced on the phases' times when they ran in one process (PERF.md); the
 # last two (the policy variants and the aware checkpoint) took 280 s and
 # 250 s running side by side.
-LANES = (("serve_flying_obstacles", "train_streaming"),
-         ("serve_flying", "serve_streaming", "train_rexquad"),
+LANES = (("serve_flying_obstacles", "train_streaming", "train_rexquad_implicit"),
+         ("serve_flying", "serve_streaming", "train_rexquad", "train_rexquad_recompute",
+          "train_slice8_multi_bptt"),
          ("serve_cartpole", "train_flying", "train_cartpole", "serve_rexquad", "train_pendulum",
-          "serve_pendulum"),
+          "serve_pendulum", "serve_rexquad_recompute"),
          ("serve_flying_diffmpc", "train_diffmpc", "serve_pendulum_diffmpc", "train_ip",
-          "serve_ip"),
+          "serve_ip", "serve_rexquad_bf16", "train_flying_qscale"),
          ("serve_flying_aware", "train_variants_mem", "train_variants_delta", "train_variants_q",
-          "serve_variants_mem", "serve_variants_delta"),
+          "serve_variants_mem", "serve_variants_delta", "train_slice8_broyden",
+          "train_slice8_broyden_implicit", "train_slice8_bf16"),
          ("train_variants_history", "train_variants_estpred", "train_variants_feedback",
-          "train_variants_history_joint", "serve_variants_feedback", "serve_variants_q"))
+          "train_variants_history_joint", "serve_variants_feedback", "serve_variants_q",
+          "train_slice8_multi_last_step", "train_slice8_grad_coeff"))
 LANE_THREADS = 2  # torch's CPU threads per lane (the CPU references)
 
 
@@ -1803,7 +2040,7 @@ def main(argv=None) -> int:
     for row in timings:
         print(f"[chip_smoke]   timing {json.dumps(row)}", flush=True)
 
-    # -- 4-10, 12-24. the paths, in LANES worker processes ------------------------
+    # -- 4-10, 12-30. the paths, in LANES worker processes ------------------------
     lanes = [[n for n in lane if selected is None or n in selected] for lane in LANES]
     lanes = [lane for lane in lanes if lane]
     phase("paths", lanes=lanes)
@@ -1815,6 +2052,7 @@ def main(argv=None) -> int:
                 try:
                     results.update(fut.result())
                 except Exception as e:  # every lane runs to its end; the first failure raises
+                    print(f"[chip_smoke] a lane failed: {e}", flush=True)
                     failures.append(e)
     report.update({name: data for name, (data, _) in results.items()})
     if failures:

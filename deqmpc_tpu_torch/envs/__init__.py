@@ -6,7 +6,7 @@ from .pendulum import PendulumEnv
 from .quadrotor import RexQuadrotor
 
 __all__ = ["Env", "CartpoleEnv", "Cartpole2linkEnv", "FlyingCartpole", "PendulumEnv",
-           "RexQuadrotor", "make_env"]
+           "RexQuadrotor", "make_env", "make_env_of"]
 
 
 def make_env(name: str, **kwargs):
@@ -33,3 +33,11 @@ def make_env(name: str, **kwargs):
         kwargs.setdefault("obstacle_radius", 0.4)
         return FlyingCartpole(obstacles=True, **kwargs)
     raise ValueError(f"env not ported yet: {name}")
+
+
+def make_env_of(args):
+    """The env of a run's args (a dict): `Qscale` reaches the FlyingCartpole
+    names only, as the JAX train CLI passes it (`training/train.py:520`);
+    args without it (older checkpoints) take 1."""
+    kw = {"Qscale": args.get("Qscale", 1.0)} if "FlyingCartpole" in args["env"] else {}
+    return make_env(args["env"], **kw)

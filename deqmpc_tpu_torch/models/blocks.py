@@ -11,20 +11,46 @@ them one to one; `utils/checkpoint.py` transposes Dense kernels for
 `deq_layer_variants.py`) is an `UnfoldConv` here: the same kernel layout
 and the same sum. The norms follow flax: eps 1e-6 and the one-pass variance
 E[x^2] - E[x]^2 clipped at 0.
+
+`dtype` (the trunk's `compute_dtype`, `blocks.py:22-58,71-203`): the
+matmul dtype of the layers JAX gives it, `torch.bfloat16` for the tensor
+cores. The stacked input (or the Dense input), the kernel and the bias are
+cast to it and the bias is added in it, as flax does; parameters stay in
+their own dtype. The norms then promote as flax's do: their statistics in
+at least f32, the result in the dtype of the input promoted with the
+parameters'. So the casts are written out; `torch.autocast` would keep
+other ops in bf16 too.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+
+def dense(layer: nn.Linear, x, dtype: Optional[torch.dtype] = None):
+    """flax `nn.Dense(dtype=...)` on an `nn.Linear`: x, kernel and bias cast
+    to `dtype` (None: the layer as it is), product, then the bias added."""
+    if dtype is None:
+        return layer(x)
+    return x.to(dtype) @ layer.weight.to(dtype).T + layer.bias.to(dtype)
+
+
+def _stats_input(x):
+    """The input of a norm's statistics: at least f32, as flax's."""
+    return x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
 
 
 class UnfoldConv(nn.Module):
     """Conv1d(k, SAME) as unfold plus ONE matmul: (B, L, k*Cin) @
     (k*Cin, Cout). The kernel keeps the flax layout (k, Cin, Cout)."""
 
-    def __init__(self, cin: int, cout: int, kernel_width: int = 3):
+    def __init__(self, cin: int, cout: int, kernel_width: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel_width = kernel_width
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(kernel_width, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout))
         nn.init.normal_(self.kernel, std=(kernel_width * cin) ** -0.5)
@@ -43,7 +69,10 @@ class UnfoldConv(nn.Module):
                 s = x
             shifts.append(s)
         stacked = torch.cat(shifts, dim=-1)
-        return stacked @ self.kernel.reshape(-1, self.kernel.shape[-1]) + self.bias
+        kernel = self.kernel.reshape(-1, self.kernel.shape[-1])
+        if self.dtype is None:
+            return stacked @ kernel + self.bias
+        return stacked.to(self.dtype) @ kernel.to(self.dtype) + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -56,6 +85,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        x = _stats_input(x)
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
@@ -73,6 +103,7 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        x = _stats_input(x)
         B, L, C = x.shape
         G = self.num_groups
         xg = x.reshape(B, L, G, C // G)
@@ -110,8 +141,9 @@ class MLPCell(nn.Module):
     z' = LN_1(relu(z + LN_2(x_inj + Dense_1(LN_0(relu(Dense_0(z))))))),
     flax naming the outer norm before the inner one."""
 
-    def __init__(self, hdim: int, expand: int = 4):
+    def __init__(self, hdim: int, expand: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.Dense_0 = nn.Linear(hdim, hdim * expand)
         self.LayerNorm_0 = LayerNorm(hdim * expand)
         self.LayerNorm_1 = LayerNorm(hdim)
@@ -119,8 +151,9 @@ class MLPCell(nn.Module):
         self.Dense_1 = nn.Linear(hdim * expand, hdim)
 
     def forward(self, x_inj, z):
-        y = self.LayerNorm_0(torch.relu(self.Dense_0(z)))
-        return self.LayerNorm_1(torch.relu(z + self.LayerNorm_2(x_inj + self.Dense_1(y))))
+        y = self.LayerNorm_0(torch.relu(dense(self.Dense_0, z, self.dtype)))
+        return self.LayerNorm_1(torch.relu(
+            z + self.LayerNorm_2(x_inj + dense(self.Dense_1, y, self.dtype))))
 
 
 class MLPOutput(nn.Module):
@@ -141,21 +174,23 @@ class ConvInput(nn.Module):
     obstacle features), fused by two convs and a GroupNorm."""
 
     def __init__(self, nx: int, obs_dim: int, hdim: int, horizon: int,
-                 kernel_width: int = 3, num_groups: int = 4, extra_dim: int = 0):
+                 kernel_width: int = 3, num_groups: int = 4, extra_dim: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.Dense_0 = nn.Linear(nx, hdim)
         self.LayerNorm_0 = LayerNorm(hdim)
         self.Dense_1 = nn.Linear(obs_dim, hdim)
         self.LayerNorm_1 = LayerNorm(hdim)
         self.time_emb = nn.Parameter(torch.randn(horizon, hdim))
-        self.Conv_0 = UnfoldConv(3 * hdim + extra_dim, 4 * hdim, kernel_width)
-        self.Conv_1 = UnfoldConv(4 * hdim, hdim, kernel_width)
+        self.Conv_0 = UnfoldConv(3 * hdim + extra_dim, 4 * hdim, kernel_width, dtype)
+        self.Conv_1 = UnfoldConv(4 * hdim, hdim, kernel_width, dtype)
         self.GroupNorm_0 = GroupNorm(hdim, num_groups)
 
     def forward(self, x_nodes, obs, extra=()):
         # x_nodes: (B, T-1, nx); obs: (B, obs_dim); extra: (B, T-1, c) each
-        node_emb = torch.relu(self.LayerNorm_0(self.Dense_0(x_nodes)))
-        x0_emb = torch.relu(self.LayerNorm_1(self.Dense_1(obs)))
+        node_emb = torch.relu(self.LayerNorm_0(dense(self.Dense_0, x_nodes, self.dtype)))
+        x0_emb = torch.relu(self.LayerNorm_1(dense(self.Dense_1, obs, self.dtype)))
         x0_emb = x0_emb[:, None].expand(-1, x_nodes.shape[1], -1)
         t_emb = self.time_emb[None].expand_as(x0_emb)
         inp = torch.cat([node_emb, x0_emb, t_emb, *extra], dim=-1)
@@ -168,10 +203,10 @@ class ConvCell(nn.Module):
     z' = GN_1(relu(z + GN_2(x_inj + Conv_1(GN_0(relu(Conv_0(z)))))))."""
 
     def __init__(self, hdim: int, expand: int = 4, kernel_width: int = 3,
-                 num_groups: int = 4):
+                 num_groups: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.Conv_0 = UnfoldConv(hdim, hdim * expand, kernel_width)
-        self.Conv_1 = UnfoldConv(hdim * expand, hdim, kernel_width)
+        self.Conv_0 = UnfoldConv(hdim, hdim * expand, kernel_width, dtype)
+        self.Conv_1 = UnfoldConv(hdim * expand, hdim, kernel_width, dtype)
         self.GroupNorm_0 = GroupNorm(hdim * expand, num_groups)
         # flax names the outer norm before the inner one
         self.GroupNorm_1 = GroupNorm(hdim, num_groups)
@@ -183,12 +218,14 @@ class ConvCell(nn.Module):
 
 
 class ConvOutput(nn.Module):
-    """gcn output head: conv, GroupNorm, relu, then a width-1 conv."""
+    """gcn output head: conv, GroupNorm, relu, then a width-1 conv, which
+    keeps the parameters' dtype whatever `dtype` says (its output feeds the
+    solver's reference)."""
 
     def __init__(self, out_dim: int, hdim: int, kernel_width: int = 3,
-                 num_groups: int = 4):
+                 num_groups: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.Conv_0 = UnfoldConv(hdim, hdim, kernel_width)
+        self.Conv_0 = UnfoldConv(hdim, hdim, kernel_width, dtype)
         self.GroupNorm_0 = GroupNorm(hdim, num_groups)
         self.Conv_1 = UnfoldConv(hdim, out_dim, kernel_width=1)
 

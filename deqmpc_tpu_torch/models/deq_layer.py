@@ -1,12 +1,10 @@
 """DEQ layer: the fixed-point trajectory-proposal network.
 
-Port of `DEQLayerConfig`, `DEQLayer` and `FFDNetwork`
-(`deqmpc_tpu/models/deq_layer.py:80-311`): the input encoder embeds the
-observation and the carried trajectory, `_fixed_point` runs Anderson on
-the cell and then applies the cell three more times (or, with
-`fp_type="single"`, the feed-forward `FFDNetwork` of deq-mpc-nn, applies
-it once to the carried z, with its gradient), and `_decode` turns the
-(T-1) x nx head output into the reference trajectory. Both trunks are
+Port of `make_implicit_fp`, `DEQLayerConfig`, `DEQLayer` and `FFDNetwork`
+(`deqmpc_tpu/models/deq_layer.py:41-311`): the input encoder embeds the
+observation and the carried trajectory, `_fixed_point` solves for the
+cell's fixed point, and `_decode` turns the (T-1) x nx head output into
+the reference trajectory. Both trunks are
 here: "gcn" (convolutions over the horizon, z (B, T-1, hdim)) and "mlp"
 (a flat hidden state, z (B, hdim), the input the flattened trajectory).
 
@@ -18,10 +16,27 @@ encoder, more flat inputs of the mlp one. Nearest first, a tie going to
 the lower index, as `lax.top_k` orders them; the offsets and clearances
 are clipped to +-OBSTACLE_RANGE after the clearance is taken.
 
-Gradient ("phantom gradient", `deq_layer.py:254-272`): Anderson runs
-under `torch.no_grad()` from a detached z, its result is detached, and
-only the three re-applications of the cell carry a gradient. It is not
-implicit differentiation, and no gradient reaches the incoming z.
+The fixed point by `fp_type` and `grad_type` (`deq_layer.py:223-272`):
+
+- "single": one cell application to the carried z, with its gradient
+  (the feed-forward `FFDNetwork` of deq-mpc-nn);
+- "multi": `inner_deq_iters` applications; with `grad_type`
+  "last_step_grad" all but the last without a gradient, with any other
+  `grad_type` all with it (backpropagation through the iterations);
+- "anderson", and any other value "broyden": the solver runs under
+  `torch.no_grad()` from a detached z and its best iterate is detached;
+  then, with `grad_type` "implicit", that iterate z* is the output and
+  `ImplicitFixedPoint` gives the true DEQ gradient; with any other
+  `grad_type` ("fp_grad", "bptt", a free string as in JAX) the cell is
+  applied three more times with the gradient (the phantom gradient).
+  Either way no gradient reaches the incoming z. Broyden takes
+  `fp_max_steps`, Anderson also `fp_m`.
+
+`_fixed_point` returns (z, stats): the solver's mean best error and mean
+best step ("fwd_err", "fwd_steps"), None without a solver; each round's
+aux carries them as "deq_fwd_err" and "deq_fwd_steps".
+`compute_dtype=torch.bfloat16` runs the trunk's matmuls in bf16
+(`models/blocks.py`).
 
 Decode convention (`deq_layer.py:274-285`): positions integrate from the
 current state (x_ref_pos = x0_pos + dq*dt), velocities are direct
@@ -41,9 +56,56 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..solvers.fp import anderson
+from ..solvers.fp import anderson, broyden
 from .blocks import (ConvCell, ConvInput, ConvOutput, GroupNorm, LayerNorm, MLPCell, MLPInput,
                      MLPOutput, UnfoldConv)
+
+
+def adjoint_solve(vjp_z, g, solver, kw):
+    """The backward's transpose fixed point w = (df/dz)' w + g, by the
+    forward's solver with its settings, started from g."""
+    w, _ = solver(lambda ww: vjp_z(ww) + g, g, **kw)
+    return w
+
+
+class ImplicitFixedPoint(torch.autograd.Function):
+    """The fixed-point solve with the true implicit backward
+    (`make_implicit_fp`, `deq_layer.py:41-76`, a `custom_vjp` there).
+
+    Forward: z* = solver(f) from z0 without a gradient, f(z) =
+    cell(inj, z), and the solver's best errors and steps; z* is the
+    output, with no further cell application. Backward: w solves
+    w = (df/dz)' w + g with the same solver and settings, started from g
+    (`adjoint_solve`), then one VJP of f at z* hands w on to the cell's
+    parameters and to `inj`; z0 gets zeros. The backward runs the cell
+    again on detached copies, so it can run as often as the graph is
+    retained."""
+
+    @staticmethod
+    def forward(ctx, cell, solver, kw, inj, z0, *params):
+        with torch.no_grad():
+            z_star, info = solver(lambda zz: cell(inj, zz), z0.detach(), **kw)
+        ctx.cell, ctx.solver, ctx.kw = cell, solver, kw
+        ctx.save_for_backward(inj, z_star, *params)
+        ctx.mark_non_differentiable(info.best_err, info.best_step)
+        return z_star, info.best_err, info.best_step
+
+    @staticmethod
+    def backward(ctx, g, _err, _step):
+        inj, z_star, *params = ctx.saved_tensors
+        names = [n for n, _ in ctx.cell.named_parameters()]
+        with torch.enable_grad():
+            inj_d = inj.detach().requires_grad_()
+            z_d = z_star.detach().requires_grad_()
+            p_d = [p.detach().requires_grad_() for p in params]
+            fz = torch.func.functional_call(ctx.cell, dict(zip(names, p_d)), (inj_d, z_d))
+
+            def vjp_z(ww):
+                return torch.autograd.grad(fz, z_d, ww, retain_graph=True)[0]
+
+            w = adjoint_solve(vjp_z, g, ctx.solver, ctx.kw)
+            grads = torch.autograd.grad(fz, [inj_d, *p_d], w, allow_unused=True)
+        return (None, None, None, grads[0], torch.zeros_like(z_star), *grads[1:])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,10 +123,27 @@ class DEQLayerConfig:
     kernel_width: int = 3
     deq_expand: int = 4
     num_groups: int = 4
-    fp_type: str = "anderson"  # or "single": one cell application
+    fp_type: str = "anderson"  # "single" | "multi" | "broyden" | "anderson"
+    inner_deq_iters: int = 4   # the cell applications of fp_type "multi"
+    # "fp_grad" (the phantom gradient), "implicit", "last_step_grad", or any
+    # other string, which takes the default branch as in JAX
+    grad_type: str = "fp_grad"
+    # the trunk's matmul dtype: None (the parameters'), or torch.bfloat16
+    compute_dtype: Any = None
     # the obstacle-aware input: the field's centers (N, 3), or None
     obstacle_centers: Any = None
     obstacle_radius: float = 0.0
+
+
+def fp_stats(best_err, best_step) -> Dict:
+    """A solve's stats as JAX reports them: the mean best error, and the
+    mean best step in f32."""
+    return {"fwd_err": best_err.mean(), "fwd_steps": best_step.to(torch.float32).mean()}
+
+
+def stats_aux(stats: Dict) -> Dict:
+    """The stats as a round's aux carries them."""
+    return {"deq_fwd_err": stats["fwd_err"], "deq_fwd_steps": stats["fwd_steps"]}
 
 
 # the obstacle-aware input's spheres per knot (the solver's rows select as
@@ -88,19 +167,20 @@ class DEQLayer(nn.Module):
     def _build(self):
         c = self.cfg
         n_feat = 4 * OBSTACLE_N_SEL if c.obstacle_centers is not None else 0
+        dt = c.compute_dtype
         if c.layer_type == "mlp":
             self.input = MLPInput(c.T * c.nx + (c.T - 1) * n_feat, c.hdim)
-            self.cell = MLPCell(c.hdim, c.deq_expand)
+            self.cell = MLPCell(c.hdim, c.deq_expand, dt)
             self.out = MLPOutput(c.hdim, c.nx * (c.T - 1))
             self.iter_emb = nn.Parameter(torch.zeros(c.deq_iter, c.hdim))
         elif c.layer_type == "gcn":
             self.input = ConvInput(nx=c.nx, obs_dim=c.nx, hdim=c.hdim, horizon=c.T - 1,
                                    kernel_width=c.kernel_width, num_groups=c.num_groups,
-                                   extra_dim=n_feat)
+                                   extra_dim=n_feat, dtype=dt)
             self.cell = ConvCell(hdim=c.hdim, expand=c.deq_expand,
-                                 kernel_width=c.kernel_width, num_groups=c.num_groups)
+                                 kernel_width=c.kernel_width, num_groups=c.num_groups, dtype=dt)
             self.out = ConvOutput(out_dim=c.nx, hdim=c.hdim, kernel_width=c.kernel_width,
-                                  num_groups=c.num_groups)
+                                  num_groups=c.num_groups, dtype=dt)
             # per-iteration embedding: in the checkpoint, unused by the base
             # forward exactly as in the JAX package
             self.iter_emb = nn.Parameter(torch.zeros(c.deq_iter, c.T - 1, c.hdim))
@@ -181,21 +261,42 @@ class DEQLayer(nn.Module):
                                          *[e.reshape(bsz, -1) for e in extra]], dim=-1))
         return self.input(x_prev[:, 1:], obs, extra)
 
+    def _solver(self):
+        """The accelerated solver of fp_type and its settings (any fp_type
+        but "anderson" is Broyden, as in JAX)."""
+        c = self.cfg
+        if c.fp_type == "anderson":
+            return anderson, dict(m=c.fp_m, max_steps=c.fp_max_steps)
+        return broyden, dict(max_steps=c.fp_max_steps)
+
     def _fixed_point(self, inj, z):
-        """Anderson on the cell without a gradient, then three cell
-        applications with one (the phantom gradient); with fp_type
-        "single", one cell application with its gradient."""
+        """The round's fixed point by fp_type and grad_type (see the module
+        docstring). Returns (z_out, {"fwd_err", "fwd_steps"})."""
         c = self.cfg
 
         def f(zz):
             return self.cell(inj, zz)
 
+        stats = {"fwd_err": None, "fwd_steps": None}
         if c.fp_type == "single":
-            return f(z)
-
+            return f(z), stats
+        if c.fp_type == "multi":
+            for i in range(c.inner_deq_iters):
+                if c.grad_type == "last_step_grad" and i < c.inner_deq_iters - 1:
+                    with torch.no_grad():
+                        z = f(z)
+                else:
+                    z = f(z)
+            return z, stats
+        solver, kw = self._solver()
+        if c.grad_type == "implicit":
+            z_star, best_err, best_step = ImplicitFixedPoint.apply(
+                self.cell, solver, kw, inj, z, *self.cell.parameters())
+            return z_star, fp_stats(best_err, best_step)
         with torch.no_grad():
-            z_star, _ = anderson(f, z.detach(), m=c.fp_m, max_steps=c.fp_max_steps)
-        return f(f(f(z_star.detach())))
+            z_star, info = solver(f, z.detach(), **kw)
+        # the phantom gradient: three re-engaged applications
+        return f(f(f(z_star.detach()))), fp_stats(info.best_err, info.best_step)
 
     def _decode(self, obs, x_prev, dx_ref):
         """(T-1) x nx deltas -> x_ref (bsz, T, nx) with obs prepended."""
@@ -210,12 +311,14 @@ class DEQLayer(nn.Module):
 
     def step(self, obs, aux: Dict) -> Tuple[Dict, Dict]:
         """One round (`deq_layer.py:287-302`): aux {"x", "z", "iter", ...}
-        -> ({"x_t", "x_ref", "u_ref"}, {"x", "u", "z", "iter"})."""
+        -> ({"x_t", "x_ref", "u_ref"}, {"x", "u", "z", "iter",
+        "deq_fwd_err", "deq_fwd_steps"})."""
         x_prev = aux["x"]
-        z_out = self._fixed_point(self._input(obs, x_prev), aux["z"])
+        z_out, stats = self._fixed_point(self._input(obs, x_prev), aux["z"])
         x_ref, u_ref = self._decode(obs, x_prev, self.out(z_out))
         return ({"x_t": obs, "x_ref": x_ref, "u_ref": u_ref},
-                {"x": x_ref, "u": u_ref, "z": z_out, "iter": aux.get("iter", 0)})
+                {"x": x_ref, "u": u_ref, "z": z_out, "iter": aux.get("iter", 0),
+                 **stats_aux(stats)})
 
     def forward(self, obs, x_prev, z) -> Tuple[Dict, torch.Tensor]:
         """obs (bsz, nx), x_prev (bsz, T, nx), z (bsz, T-1, hdim), or

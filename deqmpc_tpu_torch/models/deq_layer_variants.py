@@ -34,7 +34,7 @@ from torch import nn
 from ..solvers.fp import anderson
 from .blocks import (ConvOutput, GatedResidual, GroupNorm, LayerNorm, MLPCell, MLPInput,
                      MLPOutput, UnfoldConv, get_act)
-from .deq_layer import DEQLayer, DEQLayerConfig
+from .deq_layer import DEQLayer, DEQLayerConfig, fp_stats, stats_aux
 
 
 class _ScaleMultiplyST(torch.autograd.Function):
@@ -172,12 +172,12 @@ class DEQLayerMem(DEQLayer):
         c = self.cfg
         x_prev, mem = aux["x"], aux["mem"]
         inj = self._input(obs, x_prev, (mem,) if c.layer_type == "gcn" else ())
-        z_out = self._fixed_point(inj, aux["z"])
+        z_out, stats = self._fixed_point(inj, aux["z"])
         x_ref, u_ref = self._decode(obs, x_prev, self.out(z_out))
         new_mem = z_out if self.mem_bypass else self.mem2(self.mem1(mem, z_out), z_out)
         return ({"x_t": obs, "x_ref": x_ref, "u_ref": u_ref},
                 {"x": x_ref, "u": u_ref, "z": z_out, "iter": aux.get("iter", 0),
-                 "mem": new_mem, "old_mem": mem})
+                 "mem": new_mem, "old_mem": mem, **stats_aux(stats)})
 
 
 class DEQLayerDelta(DEQLayer):
@@ -194,7 +194,8 @@ class DEQLayerDelta(DEQLayer):
         c = self.cfg
         x_prev = aux["x"]
         it = _iter(aux, c)
-        z_out = self._fixed_point(self._input(obs, x_prev), aux["z"] + self.iter_emb[it][None])
+        z_out, stats = self._fixed_point(self._input(obs, x_prev),
+                                         aux["z"] + self.iter_emb[it][None])
         out = self.out(z_out)
         scale = self.scales[it]
         scale = torch.cat([scale[:, : c.nq] / c.dt, scale[:, c.nq:]], dim=-1)  # (T-1, nx)
@@ -206,7 +207,7 @@ class DEQLayerDelta(DEQLayer):
         x_ref = torch.cat([obs[:, None, :], torch.cat([pos, vel], dim=-1)], dim=-2)
         u_ref = torch.zeros((bsz, c.T, c.nu), dtype=x_ref.dtype, device=x_ref.device)
         return ({"x_t": obs, "x_ref": x_ref, "u_ref": u_ref, "s": scale.abs().mean()},
-                {"x": x_ref, "u": u_ref, "z": z_out, "iter": it})
+                {"x": x_ref, "u": u_ref, "z": z_out, "iter": it, **stats_aux(stats)})
 
 
 class DEQLayerHistoryState(DEQLayer):
@@ -239,13 +240,21 @@ class DEQLayerHistoryState(DEQLayer):
         return obs_inp, self.pred_enc([self.node(aux["x"]), x0])
 
     def _fixed_point(self, inj, z):
-        """Anderson on the pair flattened into one vector, then three cell
-        applications with the gradient; with fp_type "single", one."""
+        """The tuple fixed point, with JAX's own rules
+        (`deq_layer_variants.py:341-378`): "single" one cell application,
+        "multi" `inner_deq_iters` of them, all with the gradient whatever
+        `grad_type` says; any other fp_type, "broyden" included, Anderson
+        on the pair flattened into one vector, then three cell applications
+        with the gradient ("implicit" is not taken here)."""
+        c = self.cfg
+
         def f(zz):
             return self.cell(inj, zz)
 
-        if self.cfg.fp_type == "single":
-            return f(z)
+        if c.fp_type in ("single", "multi"):
+            for _ in range(1 if c.fp_type == "single" else c.inner_deq_iters):
+                z = f(z)
+            return z, {"fwd_err": None, "fwd_steps": None}
         bsz = z[0].shape[0]
         n0, shapes = z[0][0].numel(), (z[0].shape, z[1].shape)
 
@@ -255,9 +264,9 @@ class DEQLayerHistoryState(DEQLayer):
 
         with torch.no_grad():
             zf0 = torch.cat([z[0].reshape(bsz, -1), z[1].reshape(bsz, -1)], dim=1)
-            zs, _ = anderson(f_flat, zf0, m=self.cfg.fp_m, max_steps=self.cfg.fp_max_steps)
+            zs, info = anderson(f_flat, zf0, m=c.fp_m, max_steps=c.fp_max_steps)
         zt = (zs[:, :n0].reshape(shapes[0]), zs[:, n0:].reshape(shapes[1]))
-        return f(f(f(zt)))
+        return f(f(f(zt))), fp_stats(info.best_err, info.best_step)
 
     def _history(self, obs_hist):
         return obs_hist.reshape(obs_hist.shape[0], self.H, self.cfg.nx)
@@ -270,11 +279,12 @@ class DEQLayerHistoryState(DEQLayer):
     def step(self, obs_hist, aux: Dict):
         c = self.cfg
         obs_hist = self._history(obs_hist)
-        z_out = self._fixed_point(self._encode(obs_hist, aux), aux["z"])
+        z_out, stats = self._fixed_point(self._encode(obs_hist, aux), aux["z"])
         x_ref = self._knots(self.out(z_out[1]), aux["x"])
         u_ref = torch.zeros((x_ref.shape[0], c.T, c.nu), dtype=x_ref.dtype, device=x_ref.device)
         return ({"x_t": x_ref[:, 0], "x_ref": x_ref, "u_ref": u_ref},
-                {"x": x_ref, "u": u_ref, "z": z_out, "iter": aux.get("iter", 0)})
+                {"x": x_ref, "u": u_ref, "z": z_out, "iter": aux.get("iter", 0),
+                 **stats_aux(stats)})
 
 
 class DEQLayerHistoryStateEstPred(DEQLayerHistoryState):
@@ -320,7 +330,7 @@ class DEQLayerHistory(DEQLayer):
     def _build(self):
         c = self.cfg
         self.input = MLPInput(c.nx * self.H + c.nx * c.T + c.nu * (c.T - 1), c.hdim)
-        self.cell = MLPCell(c.hdim, c.deq_expand)
+        self.cell = MLPCell(c.hdim, c.deq_expand, c.compute_dtype)
         self.out = MLPOutput(c.hdim, c.nx * c.T + c.nu * (c.T - 1))
 
     def step(self, obs_hist, aux: Dict):
@@ -329,7 +339,7 @@ class DEQLayerHistory(DEQLayer):
         bsz = obs_hist.shape[0]
         flat = torch.cat([obs_hist.reshape(bsz, -1), x_prev.reshape(bsz, -1),
                           u_prev[:, : c.T - 1].reshape(bsz, -1)], dim=-1)
-        z_out = self._fixed_point(self.input(flat), aux["z"])
+        z_out, stats = self._fixed_point(self.input(flat), aux["z"])
         out = self.out(z_out)
         d_x = out[..., : c.nx * c.T].reshape(bsz, c.T, c.nx)
         u_ref = out[..., c.nx * c.T:].reshape(bsz, c.T - 1, c.nu)
@@ -337,7 +347,8 @@ class DEQLayerHistory(DEQLayer):
         x_ref = torch.cat([d_x[..., : c.nq] * c.dt + x_prev[..., : c.nq], d_x[..., c.nq:]],
                           dim=-1)
         return ({"x_t": x_ref[:, 0], "x_ref": x_ref, "u_ref": u_ref},
-                {"x": x_ref, "u": u_ref, "z": z_out, "iter": aux.get("iter", 0)})
+                {"x": x_ref, "u": u_ref, "z": z_out, "iter": aux.get("iter", 0),
+                 **stats_aux(stats)})
 
 
 class DEQLayerFeedback(DEQLayer):
@@ -372,10 +383,11 @@ class DEQLayerFeedback(DEQLayer):
         else:
             inj = self.enc([self.node(x[:, 1:]), self.node(xn[:, 1:]),
                             _expand_knots(self.x0(obs), c.T - 1)])
-        z_out = self._fixed_point(inj, aux["z"] + self.iter_emb[it][None])
+        z_out, stats = self._fixed_point(inj, aux["z"] + self.iter_emb[it][None])
         x_ref, u_ref = self._decode(obs, x, self.out(z_out))
         return ({"x_t": obs, "x_ref": x_ref, "u_ref": u_ref},
-                {"xn": x_ref, "x": x_ref, "u": u_ref, "z": z_out, "iter": it})
+                {"xn": x_ref, "x": x_ref, "u": u_ref, "z": z_out, "iter": it,
+                 **stats_aux(stats)})
 
 
 class DEQLayerQ(DEQLayer):
@@ -412,7 +424,7 @@ class DEQLayerQ(DEQLayer):
         else:
             xq = torch.cat([x_prev, q3], dim=-1)
             inj = self.enc([self.node(xq[:, 1:]), _expand_knots(self.x0(obs), c.T - 1)])
-        z_out = self._fixed_point(inj, aux["z"] + self.iter_emb[it][None])
+        z_out, stats = self._fixed_point(inj, aux["z"] + self.iter_emb[it][None])
         out = self.out(z_out)
         if c.layer_type == "mlp":
             dx = out[..., : c.nx * (c.T - 1)]
@@ -423,4 +435,5 @@ class DEQLayerQ(DEQLayer):
         q_out = torch.cat([torch.ones_like(q_out[:, :1]), q_out], dim=1)
         x_ref, u_ref = self._decode(obs, x_prev, dx)
         return ({"x_t": obs, "x_ref": x_ref, "u_ref": u_ref, "q": q_out},
-                {"x": x_ref, "u": u_ref, "z": z_out, "q": q_out, "iter": it})
+                {"x": x_ref, "u": u_ref, "z": z_out, "q": q_out, "iter": it,
+                 **stats_aux(stats)})

@@ -41,6 +41,17 @@ latent z and `iter` (round i, or i + 2 on warm ticks, `deqmpc_policy.py:183`;
 only the variants with iteration embeddings read it) and a variant's own
 streams. `layer_type="mlp"` is the flat trunk; `obstacle_net_input` with a
 field gives the network the nearest-sphere features of every knot.
+
+The fixed point and the trunk (`deqmpc_policy.py:56-85`): `fp_type`,
+`inner_deq_iters`, `grad_type`, `fp_m`, `fp_max_steps` and `compute_dtype`
+go to the network (`models/deq_layer.py`). Each round's solver stats land
+in `policy_out["deq_stats"]`, {"fwd_err", "fwd_steps"} stacked over the
+rounds, when the network runs a solver (`deqmpc_policy.py:220-235`).
+`recompute_Qq` (`deqmpc_policy.py:194-207`): every tracking solve refreshes
+its cost between AL iterations from `model_call`, the round's network run
+under `torch.no_grad()` on the solver's iterate (cast to the observation's
+dtype) with the round's aux and `iter`; the aux that call returns is
+discarded.
 """
 from __future__ import annotations
 
@@ -77,9 +88,14 @@ class PolicyConfig:
     layer_type: str = "gcn"  # or "mlp"
     deq_iter: int = 6
     deq_out_type: int = 1    # 2: the History variant's joint state and action output
-    fp_type: str = "anderson"  # or "single": one cell application a round
+    fp_type: str = "anderson"  # "single" | "multi" | "broyden" | "anderson"
     fp_max_steps: int = 10
     fp_m: int = 5
+    inner_deq_iters: int = 4  # fp_type "multi"
+    grad_type: str = "fp_grad"
+    compute_dtype: Any = None  # the trunk's matmul dtype: None or torch.bfloat16
+    # the cost refresh between AL iterations from the network
+    recompute_Qq: bool = False
     kernel_width: int = 3
     al_iter: int = 2
     solver_dtype: Any = torch.float32
@@ -129,6 +145,8 @@ class DEQMPCPolicy:
             nx=cfg.nx, nu=cfg.nu, nq=cfg.nq, T=cfg.T, dt=cfg.dt, hdim=cfg.hdim,
             layer_type=cfg.layer_type, deq_iter=cfg.deq_iter, fp_type=cfg.fp_type,
             fp_m=cfg.fp_m, fp_max_steps=cfg.fp_max_steps, kernel_width=cfg.kernel_width,
+            inner_deq_iters=cfg.inner_deq_iters, grad_type=cfg.grad_type,
+            compute_dtype=cfg.compute_dtype,
             obstacle_centers=torch.as_tensor(obstacles.centers).cpu().numpy() if aware else None,
             obstacle_radius=float(obstacles.radius) if aware else 0.0,
         )
@@ -215,10 +233,11 @@ class DEQMPCPolicy:
     def _deqmpc_iter(self, obs, aux: Dict, sol_state, qp_solve: bool,
                      lastqp_solve: bool, warm_start: bool = False) -> Dict:
         cfg = self.cfg
-        trajs = []
+        trajs, stats = [], []
         status = torch.zeros((obs.shape[0],), dtype=torch.bool, device=obs.device)
         for i in range(self.deq_iter):
-            out_mpc, aux = self.model.step(obs, {**aux, "iter": i + 2 if warm_start else i})
+            it = i + 2 if warm_start else i
+            out_mpc, aux = self.model.step(obs, {**aux, "iter": it})
             x_t, x_ref, u_ref = out_mpc["x_t"], out_mpc["x_ref"], out_mpc["u_ref"]
             if warm_start and i == 0:
                 # the receding-horizon shift of the duals and iterate
@@ -227,15 +246,31 @@ class DEQMPCPolicy:
             if qp_solve:
                 ns, na, status, sol_state = self.tracking_mpc(
                     x_t, x_ref, u_ref, sol_state, al_iters=cfg.al_iter, streaming=warm_start,
-                    linearize_once=warm_start and cfg.linearize_once)
+                    linearize_once=warm_start and cfg.linearize_once,
+                    model_call=self._model_call(obs, aux, it) if cfg.recompute_Qq else None)
                 # the next round reads the solver's trajectory
                 aux = {**aux, "x": ns, "u": na}
             trajs.append((x_ref, ns.detach(), na.detach()) if lastqp_solve else (x_ref, ns, na))
+            stats.append(aux)
         if lastqp_solve:
             ns, na, status, sol_state = self.tracking_mpc(x_t, x_ref, u_ref, sol_state,
                                                           al_iters=10)
             trajs[-1] = (x_ref, ns, na)
-        return {"trajs": trajs, "status": status, "carry": self._save_carry(aux, sol_state)}
+        return {"trajs": trajs, "status": status, "carry": self._save_carry(aux, sol_state),
+                **deq_stats(stats)}
+
+    def _model_call(self, obs, aux: Dict, it: int):
+        """The cost refresh's network call (`deqmpc_policy.py:194-207`):
+        xu -> the round's network output (x_ref, u_ref) concatenated, from
+        the solver's detached iterate in the observation's dtype, with the
+        round's aux and iter, under no_grad."""
+        def model_call(xu):
+            with torch.no_grad():
+                xu = xu.detach().to(obs.dtype)
+                out, _ = self.model.step(obs, {**aux, "x": xu[..., : self.nx],
+                                               "u": xu[..., self.nx:], "iter": it})
+                return torch.cat([out["x_ref"], out["u_ref"]], dim=-1)
+        return model_call
 
     def _save_carry(self, aux: Dict, sol_state) -> PolicyCarry:
         """Shift x and u left one knot, repeating the last, and detach them
@@ -253,6 +288,15 @@ class DEQMPCPolicy:
         return PolicyCarry(z=z, x=shift(aux["x"]), u=shift(aux["u"]), solver=sol_state)
 
 
+def deq_stats(auxes) -> Dict:
+    """{"deq_stats": {"fwd_err", "fwd_steps"}}, each stacked over the rounds,
+    when the rounds' network ran a solver, else {}."""
+    if not auxes or auxes[0].get("deq_fwd_err") is None:
+        return {}
+    return {"deq_stats": {k: torch.stack([a[f"deq_{k}"] for a in auxes])
+                          for k in ("fwd_err", "fwd_steps")}}
+
+
 class NNMPCPolicy(DEQMPCPolicy):
     """The feed-forward network, one round, with the loop's switches as
     given (`deqmpc_policy.py:267-273`)."""
@@ -263,13 +307,9 @@ class NNMPCPolicy(DEQMPCPolicy):
                          device=device, obstacles=obstacles)
 
 
-# the keys whose other values wait for a later slice, with the values ported
-NOT_PORTED = {
-    "fp_type": ("anderson", "single"), "grad_type": ("fp_grad",), "recompute_Qq": (False,),
-    "compute_dtype": ("f32",), "grad_coeff": (False,), "deq_type": ("deq", "nn"),
-    # the FlyingCartpole's state-weight scale, which the port's envs keep at 1
-    "Qscale": (1.0,),
-}
+# the keys the port refuses other values of: deq_type's two are every value the
+# JAX CLI takes
+NOT_PORTED = {"deq_type": ("deq", "nn")}
 POLICY_VARIANTS = ("base", "mem", "delta", "history", "estpred", "feedback", "q")
 
 
@@ -278,14 +318,18 @@ def build_policy(args: Mapping[str, Any], env, device="cuda",
     """The policy a checkpoint's `args` describe (`training/train.py:191-246`):
     `NNMPCPolicy` when `deq` is false, else the `policy_variant` (`addmem`
     meaning mem; history and estpred with the args' `H`), with the args'
-    trunk (`layer_type`), `deq_out_type`, `qp_solve`, `lastqp_solve`,
+    trunk (`layer_type`, `compute_dtype` "f32" or "bf16"), fixed point
+    (`fp_type`, `inner_deq_iters`, `grad_type`, `m`, `max_steps`),
+    `deq_out_type`, `qp_solve`, `lastqp_solve`, `recompute_Qq`,
     `solver_type` and `obstacle_net_input`. `obstacles`: the env's field
-    (`training.train.build_obstacles`), or None. Keys of `NOT_PORTED` with
-    another value raise NotImplementedError."""
+    (`training.train.build_obstacles`), or None. A `deq_type` other than
+    deq and nn raises NotImplementedError. `inner_deq_iters` reaches the
+    network here; the JAX CLI takes the flag and never hands it on, so
+    JAX runs 4 whatever it says (ROADMAP C8)."""
     a = dict(args)
     for key, ok in NOT_PORTED.items():
         if key in a and a[key] not in ok:
-            raise NotImplementedError(f"{key}={a[key]!r} is not ported yet")
+            raise NotImplementedError(f"{key}={a[key]!r} is not ported")
     variant = "mem" if a.get("addmem", False) else a.get("policy_variant", "base")
     if variant not in POLICY_VARIANTS:
         raise ValueError(f"unknown policy_variant {variant!r}")
@@ -310,6 +354,9 @@ def build_policy(args: Mapping[str, Any], env, device="cuda",
         solver_type=a.get("solver_type", "al"), qp_iter=a.get("qp_iter", 1),
         ip_eps=a.get("eps", 1e-2), ip_grad_method=a.get("ip_grad_method", "analytic"),
         obstacle_net_input=a.get("obstacle_net_input", False),
+        inner_deq_iters=a.get("inner_deq_iters", 4), grad_type=a.get("grad_type", "fp_grad"),
+        recompute_Qq=a.get("recompute_Qq", False),
+        compute_dtype=torch.bfloat16 if a.get("compute_dtype", "f32") == "bf16" else None,
     )
     kw = dict(device=device, obstacles=obstacles)
     if not a.get("deq", True):

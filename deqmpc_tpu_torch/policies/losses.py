@@ -1,8 +1,8 @@
 """Per-iteration imitation losses for DEQ-MPC training.
 
 Port of `loss_type_conditioned`, `compute_cost_coeff`,
-`compute_loss_deqmpc`, `_iter_weights` and `compute_loss_deqmpc_hist`
-(`deqmpc_tpu/policies/losses.py:25-199`): every round's (optimizer
+`compute_loss_deqmpc`, `_iter_weights`, `compute_loss_deqmpc_hist` and
+`compute_decomposed_losses` (`deqmpc_tpu/policies/losses.py:25-219`): every round's (optimizer
 trajectory, network trajectory) pair is held against the expert window,
 loss = sum_j mean_b(loss_opt_j + deq_reg * loss_nn_j), plus, for the Q
 variant, 0.02 * sum_t |q_scaling_j| per sample (`losses.py:102-117`). The
@@ -13,7 +13,7 @@ JAX, leaves them out of the total.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -149,3 +149,19 @@ def compute_loss_deqmpc_hist(policy, gt_states, gt_actions, gt_obs, gt_mask, pol
     out["losses_x_ests"] = torch.stack([cost(pre) for pre, _ in x_ests])
     out["losses_x_ests_post"] = torch.stack([cost(post) for _, post in x_ests])
     return out
+
+
+def compute_decomposed_losses(policy, gt_states, gt_actions, gt_mask,
+                              policy_out) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per round, its batch-mean (opt, nn) losses with unit coefficients
+    (`losses.py:201-219`, which stacks them into two (n_iter,) arrays): what
+    the gradient-ratio coefficients probe (`training/grad_coeffs.py`). Kept
+    as separate scalars, so that a gradient of one round's loss walks only
+    the rounds it depends on."""
+    def cost(states, actions):
+        return compute_cost_coeff(policy.nq, policy.T, policy.out_type, policy.loss_type,
+                                  gt_states, gt_actions, gt_mask, states, actions,
+                                  1.0, 1.0, 1.0)[0].mean()
+
+    return [(cost(opt, actions), cost(net, actions))
+            for net, opt, actions in policy_out["trajs"]]

@@ -22,6 +22,10 @@ Port of `deqmpc_tpu/policies/policy_variants.py:32-270`:
 - `DEQMPCPolicyQ`: `DEQLayerQ`; each tracking solve takes the round's Q
   scalings. As in JAX, the next round reads the network's own trajectory,
   not the solver's, and the carry is not shifted.
+
+The loops of estpred and Q are their own: they report `deq_stats` and, as
+JAX's, ignore `recompute_Qq`; the other variants take the base loop, the
+cost refresh included.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import torch
 from ..models.deq_layer_variants import (DEQLayerDelta, DEQLayerFeedback, DEQLayerHistory,
                                          DEQLayerHistoryState, DEQLayerHistoryStateEstPred,
                                          DEQLayerMem, DEQLayerQ)
-from .deqmpc_policy import DEQMPCPolicy, PolicyCarry, PolicyConfig
+from .deqmpc_policy import DEQMPCPolicy, PolicyCarry, PolicyConfig, deq_stats
 from .tracking_mpc import TrackingMPC
 
 
@@ -124,7 +128,7 @@ class DEQMPCPolicyHistoryEstPred(DEQMPCPolicyHistory):
         x_init = aux["x"]
         sol_state = self.tracking_mpc.init_state(bsz)
         est_state = self.state_estimator.init_state(bsz)
-        trajs, x_ests = [], []
+        trajs, x_ests, auxes = [], [], []
         status = torch.zeros((bsz,), dtype=torch.bool, device=obs_hist.device)
         for i in range(self.deq_iter):
             out_mpc, aux = self.model.step(obs_hist, {**aux, "iter": i})
@@ -140,12 +144,13 @@ class DEQMPCPolicyHistoryEstPred(DEQMPCPolicyHistory):
                 aux = {**aux, "x": ns, "u": na, "x_est": ns_est}
             x_ests.append((x_est, ns_est))
             trajs.append((x_ref, ns, na))
+            auxes.append(aux)
         if lastqp_solve:
             ns, na, status, sol_state = self.tracking_mpc(x_t, x_ref, u_ref, sol_state,
                                                           al_iters=10)
             trajs[-1] = (x_ref, ns, na)
         return {"trajs": trajs, "nominal_x_ests": x_ests, "status": status,
-                "init_states": x_init, "carry": None}
+                "init_states": x_init, "carry": None, **deq_stats(auxes)}
 
 
 class DEQMPCPolicyQ(DEQMPCPolicy):
@@ -163,7 +168,7 @@ class DEQMPCPolicyQ(DEQMPCPolicy):
                                                       device=obs.device)}
         x_init = aux["x"]
         sol_state = self.tracking_mpc.init_state(bsz)
-        trajs, q_scalings = [], []
+        trajs, q_scalings, auxes = [], [], []
         status = torch.zeros((bsz,), dtype=torch.bool, device=obs.device)
         for i in range(self.deq_iter):
             out_mpc, aux = self.model.step(obs, {**aux, "iter": i})
@@ -175,6 +180,7 @@ class DEQMPCPolicyQ(DEQMPCPolicy):
                     x_t, x_ref, u_ref, sol_state, al_iters=cfg.al_iter, q_scaling=out_mpc["q"])
             q_scalings.append(out_mpc["q"])
             trajs.append((x_ref, ns, na))
+            auxes.append(aux)
         if lastqp_solve:
             ns, na, status, sol_state = self.tracking_mpc(x_t, x_ref, u_ref, sol_state,
                                                           al_iters=10)
@@ -182,4 +188,4 @@ class DEQMPCPolicyQ(DEQMPCPolicy):
         carry = PolicyCarry(z=aux["z"].detach(), x=aux["x"].detach(), u=aux["u"].detach(),
                             solver=sol_state)
         return {"trajs": trajs, "q_scaling": q_scalings, "status": status,
-                "init_states": x_init, "carry": carry}
+                "init_states": x_init, "carry": carry, **deq_stats(auxes)}

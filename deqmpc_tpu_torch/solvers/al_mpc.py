@@ -28,8 +28,15 @@ Obstacles (`ALMPC(obstacles=...)`, the whole field of spheres):
 `select_obstacles(x_ref)` picks the `n_obs_sel` nearest per (sample,
 step) and returns them; the caller passes that set to `solve(...,
 obstacles=)`, which adds their rows to every Newton call and dual update
-of the solve. Nothing is stored on the solver between calls. The
-between-iteration cost refresh (`compute_Qq`) waits for a later slice.
+of the solve. Nothing is stored on the solver between calls.
+
+The cost refresh (`solve(compute_Qq=...)`, `al_mpc.py:186-215,302-310`):
+after the dual update of every AL iteration but the last, (Q, q) =
+compute_Qq(xu) at the detached iterate, both detached and cast to the
+solver's dtype; the next iteration's Newton call tracks that cost. So
+under the refresh the last Newton call's implicit backward reaches the
+refreshed cost, which carries no gradient: the round's network output
+then gets none through the solve.
 
 `state_estimator=True` is the MHE flavour (`al_mpc.py:77-91`): no
 initial-state row and no control box, in every Newton call, dual update
@@ -182,9 +189,9 @@ class ALMPC:
         every sample once it fired, else False. warm_start_history: a
         (cost, lam, rho) history of an earlier solve, restarting the duals
         and penalty through `warm_start_al`. obstacles: the selected set
-        (`select_obstacles`), required when the solver has obstacles."""
-        if compute_Qq is not None:
-            raise NotImplementedError("compute_Qq is not ported yet")
+        (`select_obstacles`), required when the solver has obstacles.
+        compute_Qq: xu -> (Q, q), the cost refresh between AL iterations
+        (the history records each iteration's cost before its refresh)."""
         self._check_obstacles(obstacles)
         al_iter = self.al_iter if al_iter is None else al_iter
         nx, dtype = self.nx, self.dtype
@@ -206,7 +213,7 @@ class ALMPC:
             lam, rho = warm_start_al(lam, rho, compute_cost(xu.detach(), Q, q),
                                      *warm_start_history)
         hist = ([compute_cost(xu.detach(), Q, q)], [lam], [rho])
-        for _ in range(al_iter):
+        for i in range(al_iter):
             xu_in = xu.detach()
             xu, _ = self.newton(xu_in, x0, lam, rho, Q, q, obstacles)
             if streaming:
@@ -227,6 +234,9 @@ class ALMPC:
                 lam, rho = lam_next, rho_next
             for h, v in zip(hist, (compute_cost(xu_sg, Q, q), lam, rho)):
                 h.append(v)
+            if compute_Qq is not None and i < al_iter - 1:
+                Q_new, q_new = compute_Qq(xu_sg)
+                Q, q = Q_new.detach().to(dtype), q_new.detach().to(dtype)
         status = (stopped.expand(bsz) if streaming
                   else torch.zeros((bsz,), dtype=torch.bool, device=x0.device))
         out = self._result(xu, lam, rho, status)

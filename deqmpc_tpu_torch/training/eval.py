@@ -26,7 +26,10 @@ the current state alone (mem, delta, feedback, q, and history at H = 1);
 estpred, which also reads the history's actions, and a history of more
 than one state are refused. An obstacle-aware checkpoint
 (`obstacle_net_input`, `checkpoints/flying_obstacles_aware_r5`) reads the
-env's field in its network as well as in its solver.
+env's field in its network as well as in its solver. The checkpoint's
+args build the policy and the env whatever options they carry (the fixed
+point, `recompute_Qq`, `compute_dtype`, a FlyingCartpole's `Qscale`);
+`--recompute_Qq` turns the cost refresh on for weights trained without it.
 
 CLI (`--ep_len` defaults to the env's `_max_episode_steps`: 100 ticks for
 RexQuadrotor and FlyingCartpole, 200 for the pendulum and the cartpole, as
@@ -38,6 +41,7 @@ at `--ep_len 360`):
       --episodes 100 --ep_len 360
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/pendulum_diffmpc_deq --episodes 100
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/pendulum_deqmpc --solver_type ip
+  python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/rexquad_deqmpc --recompute_Qq
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/flying_obstacles_aware_r5 \
       --episodes 64 --ep_len 360
 """
@@ -53,7 +57,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..envs import make_env
+from ..envs import make_env_of
 from ..policies import build_policy
 from ..utils import angle_idxs_for_env
 from ..utils.checkpoint import load_checkpoint
@@ -159,13 +163,17 @@ def main(argv=None) -> Dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--solver_type", choices=["al", "ip"], default=None,
                     help="the tracking solve, in place of the checkpoint's")
+    ap.add_argument("--recompute_Qq", action="store_true",
+                    help="refresh the tracking cost from the network between AL iterations")
     ap.add_argument("--out", default=None, help="also write the result JSON here")
     a = ap.parse_args(argv)
     device = resolve_device(a.device)
     state, args = load_checkpoint(a.ckpt, device)
     if a.solver_type is not None:
         args["solver_type"] = a.solver_type
-    env = make_env(args["env"])
+    if a.recompute_Qq:
+        args["recompute_Qq"] = True
+    env = make_env_of(args)
     policy = build_policy(args, env, device, obstacles=build_obstacles(env))
     policy.model.load_state_dict(state)
     t0 = time.perf_counter()
@@ -174,6 +182,7 @@ def main(argv=None) -> Dict:
     res.update(ckpt=a.ckpt, episodes=a.episodes,
                ep_len=a.ep_len or env._max_episode_steps, seed=a.seed,
                model_type=args.get("model_type"), solver_type=args.get("solver_type", "al"),
+               recompute_Qq=args.get("recompute_Qq", False),
                device=str(device), wall_s=time.perf_counter() - t0)
     if device.type == "cuda":
         res.update(card_info())

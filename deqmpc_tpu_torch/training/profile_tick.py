@@ -19,7 +19,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .. import resolve_device
-from ..envs import make_env
+from ..envs import make_env_of
 from ..ops import block_tridiag as bt
 from ..policies import build_policy
 from ..utils.checkpoint import load_checkpoint
@@ -42,7 +42,7 @@ def main(argv=None):
     a = ap.parse_args(argv)
     device = resolve_device(a.device)
     state, args = load_checkpoint(a.ckpt, device)
-    env = make_env(args["env"])
+    env = make_env_of(args)
     policy = build_policy(args, env, device)
     policy.model.load_state_dict(state)
     x = env.reset(torch.Generator().manual_seed(0), a.episodes, device=device)

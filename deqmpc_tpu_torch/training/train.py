@@ -50,8 +50,25 @@ that order.
       --deq_iter 6 --hdim 256 --bsz 128 [--qp_iter 1 --eps 1e-2 --ip_grad_method analytic]
   python -m deqmpc_tpu_torch.training.train --env pendulum --policy_variant estpred --H 3 \\
       --T 5 --deq_iter 6 --hdim 256 --bsz 128 [--save --name estpred_port]
+  python -m deqmpc_tpu_torch.training.train --env rexquadrotor --nq 6 ... \\
+      --load --models_dir checkpoints --ckpt rexquad_deqmpc --grad_type implicit \\
+      [--recompute_Qq] [--fp_type broyden|multi --inner_deq_iters 4 --m 5 --max_steps 10] \\
+      [--compute_dtype bf16] [--grad_coeff] [--Qscale 2 (FlyingCartpole)]
   python -m deqmpc_tpu_torch.training.train ... --load --ckpt X --eval \\
       [--eval_episodes 32 --eval_ep_len 100 --eval_warm_start auto|on|off]
+
+The fixed point, the cost refresh and the trunk's dtype (`train.py:77,101,
+109-116,137,203-215`): `--fp_type`, `--inner_deq_iters`, `--grad_type` (a
+free string, as in JAX), `--m`, `--max_steps`, `--recompute_Qq` and
+`--compute_dtype f32|bf16` go to `build_policy`; `--Qscale` scales the
+FlyingCartpole's velocity weights (the env of the FlyingCartpole names
+only, as JAX's `train.py:520`). Each validation row logs the rounds'
+`deq_stats` (the solver's mean best error and step) when the network runs
+a solver. `--grad_coeff` (`train.py:673-685`): the loss coefficients,
+(deq_iter, 3) ones at the start, are updated every `--val_every` steps
+after the step, on the same batch and outside streaming, by the EMA of the
+rounds' gradient ratios at the output head (`training/grad_coeffs.py`);
+the step's loss and validation take them.
 
 `--load` starts from a JAX-package checkpoint (through
 `utils/checkpoint.params_from_jax`) or a port checkpoint (then with its
@@ -74,10 +91,11 @@ import torch
 from .. import resolve_device
 from .. import utils
 from ..data import get_gt_data, merge_gt_data, sample_trajectory
-from ..envs import make_env
+from ..envs import make_env_of
 from ..models.grad_layers import update_scales
 from ..policies import build_policy, compute_loss_deqmpc, compute_loss_deqmpc_hist
 from ..policies.deqmpc_policy import POLICY_VARIANTS
+from .grad_coeffs import compute_grad_ratio_coeffs, update_coeffs_ema
 from ..solvers import ObstacleSet
 from ..utils.checkpoint import (is_port_checkpoint, load_checkpoint, read_port_checkpoint,
                                 save_checkpoint)
@@ -136,7 +154,7 @@ def _window(batch, start: int, T: int):
             batch["mask"][:, start:start + T])
 
 
-def _cold_forward(policy, batch, **mode):
+def _cold_forward(policy, batch, coeffs=None, **mode):
     obs = batch["obs"]
     if not policy.takes_history and obs.dim() == 3:
         obs = obs[:, -1]
@@ -144,10 +162,13 @@ def _cold_forward(policy, batch, **mode):
     if policy.takes_action_history:
         policy_out = policy.forward(obs, batch["obs_action"], **mode)
         d = compute_loss_deqmpc_hist(policy, window[0], window[1], batch["obs"], window[2],
-                                     policy_out, x_init=policy_out["init_states"])
+                                     policy_out, coeffs=coeffs, x_init=policy_out["init_states"])
     else:
         policy_out = policy.forward(obs, **mode)
-        d = compute_loss_deqmpc(policy, *window, policy_out, x_init=policy_out["init_states"])
+        d = compute_loss_deqmpc(policy, *window, policy_out, coeffs=coeffs,
+                                x_init=policy_out["init_states"])
+    if "deq_stats" in policy_out:
+        d["deq_stats"] = {k: v.detach() for k, v in policy_out["deq_stats"].items()}
     if policy.is_delta:
         # what the trainer's EMA of the output scales reads (`train.py:316-323`)
         d["opt_states"] = torch.stack([t[1] for t in policy_out["trajs"]]).detach()
@@ -155,23 +176,27 @@ def _cold_forward(policy, batch, **mode):
     return policy_out, d
 
 
-def loss_fn(policy, batch: Dict[str, torch.Tensor], **mode) -> Dict[str, torch.Tensor]:
+def loss_fn(policy, batch: Dict[str, torch.Tensor], coeffs=None,
+            **mode) -> Dict[str, torch.Tensor]:
     """The forward and the loss of one batch (`make_train_step.loss_fn`),
     on the first T states of its windows (a history variant's forward
-    reads the window's history, estpred's also its actions). `mode`: the
+    reads the window's history, estpred's also its actions), with the
+    rounds' loss `coeffs` (deq_iter, 3) (None: ones). `mode`: the
     forward's `qp_solve`/`lastqp_solve`, by default the policy's."""
-    return _cold_forward(policy, batch, **mode)[1]
+    return _cold_forward(policy, batch, coeffs, **mode)[1]
 
 
-def streaming_loss_fn(policy, batch: Dict[str, torch.Tensor], steps: int) -> Dict[str, torch.Tensor]:
+def streaming_loss_fn(policy, batch: Dict[str, torch.Tensor], steps: int,
+                      coeffs=None) -> Dict[str, torch.Tensor]:
     """The streaming forward and loss (`make_streaming_train_step.loss_fn`):
     the cold forward's loss on states 0..T-1, then for l = 1..`steps` a
     warm-started forward from state l and the previous carry, with its loss
     on states l..l+T-1; the losses summed, loss_end their mean, the
     per-round losses the last forward's. As in JAX, every forward takes the
-    policy's `qp_solve` and no final solve."""
+    policy's `qp_solve` and no final solve, and only the cold loss takes
+    `coeffs`."""
     mode = dict(lastqp_solve=False)
-    policy_out, d = _cold_forward(policy, batch, **mode)
+    policy_out, d = _cold_forward(policy, batch, coeffs, **mode)
     total, loss_ends = d["loss"], [d["loss_end"]]
     for l in range(1, steps + 1):
         policy_out = policy.forward_warm_start(batch["state"][:, l], policy_out["carry"], **mode)
@@ -217,17 +242,19 @@ def make_loss_fn(streaming_steps: int = 0, pretrain: bool = False) -> Callable:
 
 def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
                timings: Optional[Dict[str, float]] = None,
-               loss: Callable = loss_fn) -> Dict[str, torch.Tensor]:
-    """One training step: forward and `loss`, backward, clip, Adam, and for
-    the delta variant the EMA of its scales. Returns the loss, loss_end and
-    the gradient norm before clipping as device tensors. With `timings`, the device is synchronised after each part and
-    its host-clock seconds are stored under forward_s, backward_s and
+               loss: Callable = loss_fn, coeffs=None) -> Dict[str, torch.Tensor]:
+    """One training step: forward and `loss` (with the rounds' `coeffs`),
+    backward, clip, Adam, and for the delta variant the EMA of its scales.
+    Returns the loss, loss_end, the gradient norm before clipping and, when
+    the network runs a solver, the rounds' `deq_stats`, as device tensors.
+    With `timings`, the device is synchronised after each part and its
+    host-clock seconds are stored under forward_s, backward_s and
     optimizer_s."""
     sync = (torch.cuda.synchronize if timings is not None and batch["obs"].is_cuda
             else (lambda: None))
     t0 = time.perf_counter()
     optimizer.zero_grad(set_to_none=True)
-    d = loss(policy, batch)
+    d = loss(policy, batch, coeffs=coeffs)
     sync()
     t1 = time.perf_counter()
     d["loss"].backward()
@@ -244,14 +271,18 @@ def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
     if timings is not None:
         timings.update(forward_s=t1 - t0, backward_s=t2 - t1,
                        optimizer_s=time.perf_counter() - t2)
-    return {"loss": d["loss"].detach(), "loss_end": d["loss_end"].detach(), "grad_norm": gnorm}
+    out = {"loss": d["loss"].detach(), "loss_end": d["loss_end"].detach(), "grad_norm": gnorm}
+    if "deq_stats" in d:
+        out["deq_stats"] = d["deq_stats"]
+    return out
 
 
 def validate_policy(policy, val_samples: List[Dict[str, torch.Tensor]],
-                    loss: Callable = loss_fn) -> float:
+                    loss: Callable = loss_fn, coeffs=None) -> float:
     """Mean over the validation batches of loss_end (`train.py:404`)."""
     with torch.inference_mode():
-        return float(np.mean([float(loss(policy, b)["loss_end"]) for b in val_samples]))
+        return float(np.mean([float(loss(policy, b, coeffs=coeffs)["loss_end"])
+                              for b in val_samples]))
 
 
 # -- CLI ------------------------------------------------------------------------
@@ -304,9 +335,23 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--H", type=int, default=1, help="the history variants' window")
     p.add_argument("--obstacle_net_input", action="store_true",
                    help="the network reads the nearest spheres of each knot")
-    # multi and broyden wait for a later slice: build_policy refuses them
     p.add_argument("--fp_type", type=str, default="anderson",
                    choices=["single", "multi", "broyden", "anderson"])
+    p.add_argument("--inner_deq_iters", type=int, default=4,
+                   help="cell applications a round under --fp_type multi")
+    p.add_argument("--grad_type", type=str, default="fp_grad",
+                   help="fp_grad (the phantom gradient), implicit, last_step_grad (with "
+                        "--fp_type multi); any other value takes the default branch")
+    p.add_argument("--m", type=int, default=5, help="Anderson's memory")
+    p.add_argument("--max_steps", type=int, default=10, help="the fixed-point solver's steps")
+    p.add_argument("--recompute_Qq", action="store_true",
+                   help="refresh the tracking cost from the network between AL iterations")
+    p.add_argument("--compute_dtype", choices=["f32", "bf16"], default="f32",
+                   help="the trunk's matmul dtype (parameters, norms and solver stay f32)")
+    p.add_argument("--grad_coeff", action="store_true",
+                   help="per-round loss coefficients from the rounds' head-gradient ratios")
+    p.add_argument("--Qscale", type=float, default=1.0,
+                   help="the FlyingCartpole envs' velocity-weight scale")
     p.add_argument("--eval", action="store_true",
                    help="evaluate the loaded policy in closed loop instead of training")
     p.add_argument("--eval_episodes", type=int, default=32)
@@ -350,8 +395,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     # the JAX CLI's defaults of the flags the port does not take, then the
     # model type's presets
     vars(args).update(
-        deq_type="deq", dtype="float32", rho_max=None, kernel_width=3, m=5, max_steps=10,
-        deq_reg=0.1, loss_type="l1", policy_out_type=1, rho_init_max=1e4)
+        deq_type="deq", dtype="float32", rho_max=None, kernel_width=3, deq_reg=0.1,
+        loss_type="l1", policy_out_type=1, rho_init_max=1e4)
     return apply_model_type_presets(args)
 
 
@@ -372,7 +417,7 @@ def streaming_schedule(args: argparse.Namespace) -> int:
 def main(argv=None) -> Dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    env = make_env(args.env)
+    env = make_env_of(vars(args))
     if args.nq <= 0:
         args.nq = env.nq if env.nq <= env.nx // 2 else env.nx // 2
     total_deq_iter = streaming_schedule(args)
@@ -411,6 +456,7 @@ def main(argv=None) -> Dict:
     streaming_active = bool(args.streaming and args.streaming_start_iter == 0)
     pretrain_active = bool(args.pretrain and not streaming_active)
     loss = make_loss_fn(args.streaming_steps if streaming_active else 0, pretrain_active)
+    coeffs = torch.ones((args.deq_iter, 3), dtype=torch.float32, device=device)
     best_val, curve = np.inf, []
     losses, losses_end = [], []
     t_window = time.perf_counter()
@@ -427,7 +473,8 @@ def main(argv=None) -> Dict:
             print(f"[{i}] pretrain done: switching deq -> deqmpc", flush=True)
         batch = preprocess_batch(args.env, env.nx,
                                  sample_trajectory(gt, args.bsz, args.H, horizon, rng))
-        out = train_step(policy, optimizer, to_device(batch, device), loss=loss)
+        batch = to_device(batch, device)
+        out = train_step(policy, optimizer, batch, loss=loss, coeffs=coeffs)
         losses.append(out["loss"])
         losses_end.append(out["loss_end"])
         if i % args.val_every != 0:
@@ -435,13 +482,25 @@ def main(argv=None) -> Dict:
         if not np.isfinite(float(out["loss"])):
             print(f"[{i}] non-finite loss, stopping", flush=True)
             break
-        val = validate_policy(policy, val_samples, loss)
+        if args.grad_coeff and not streaming_active:
+            try:
+                ratios, _, _ = compute_grad_ratio_coeffs(policy, batch, qp_solve=args.qp_solve)
+                coeffs = update_coeffs_ema(coeffs, ratios)
+            except KeyError as e:
+                print(f"[{i}] --grad_coeff disabled: no output head in the model ({e})",
+                      flush=True)
+                args.grad_coeff = False
+        val = validate_policy(policy, val_samples, loss, coeffs)
         row = {"step": i,
                "loss_avg": float(torch.stack(losses).mean()) / total_deq_iter,
                "loss_end": float(torch.stack(losses_end).mean()),
                "val_loss_end": val, "grad_norm": float(out["grad_norm"]),
                "s_per_step": (time.perf_counter() - t_window) / len(losses),
                "streaming": streaming_active, "pretrain": pretrain_active}
+        if "deq_stats" in out:
+            row.update({f"deq_{k}": v.tolist() for k, v in out["deq_stats"].items()})
+        if args.grad_coeff:
+            row["coeffs"] = coeffs[:, 0].tolist()
         curve.append(row)
         print(json.dumps(row), flush=True)
         if args.save and val < best_val:

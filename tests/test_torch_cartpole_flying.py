@@ -227,8 +227,12 @@ def test_build_policy_takes_deq_mpc_nn_and_gates_the_obstacle_rows():
     assert ctrl.n_obs_sel == 4 and ctrl.ncon == 5 * 14 + 2 * 4 * 5 + 4 * 5
     bare = build_policy({**args, "obstacle_constraints": False}, env, "cpu", obstacles=obs)
     assert bare.tracking_mpc.ctrl.obstacles is None and bare.tracking_mpc.ctrl.ncon == 110
-    with pytest.raises(NotImplementedError, match="Qscale"):
-        build_policy({**args, "Qscale": 2.0}, env, "cpu", obstacles=obs)
+    # Qscale is the env's: the policy builds, the env's velocity weights scale
+    from deqmpc_tpu_torch.envs import make_env_of
+
+    scaled = make_env_of({**args, "Qscale": 2.0})
+    build_policy({**args, "Qscale": 2.0}, scaled, "cpu", obstacles=obs)
+    np.testing.assert_array_equal(scaled.Qlqr[7:], 2.0 * env.Qlqr[7:])
     # the obstacle-aware input: 16 more input channels, the field in the network
     aware = build_policy({**args, "obstacle_net_input": True}, env, "cpu", obstacles=obs)
     assert aware.model.input.Conv_0.kernel.shape[1] == pol.model.input.Conv_0.kernel.shape[1] + 16

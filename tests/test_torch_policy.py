@@ -139,9 +139,13 @@ def test_entry_points_raise_without_a_card_when_no_device_is_given(monkeypatch):
 
 
 def test_build_policy_refuses_what_is_not_ported():
+    """Every value the JAX CLI takes builds; a deq_type it does not take is
+    refused."""
     _, args = load_checkpoint(CKPT, "cpu")
-    with pytest.raises(NotImplementedError, match="fp_type"):
-        build_policy({**args, "fp_type": "broyden"}, make_env("rexquadrotor"), "cpu")
+    assert build_policy({**args, "fp_type": "broyden"}, make_env("rexquadrotor"),
+                        "cpu").model.cfg.fp_type == "broyden"
+    with pytest.raises(NotImplementedError, match="deq_type"):
+        build_policy({**args, "deq_type": "gcn"}, make_env("rexquadrotor"), "cpu")
 
 
 def test_port_imports_no_jax():

@@ -440,8 +440,8 @@ def test_train_cli_saves_a_checkpoint_that_eval_reads(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model_type", "diff-mpc-deq", "--fp_type", "multi"], "fp_type"),
-    (["--recompute_Qq"], "not ported"),
+    (["--model_type", "diff-mpc-deq", "--lr_schedule", "cosine"], "not ported"),
+    (["--rho_max", "1e3"], "not ported"),
     (["--dtype", "double"], "not ported"),
 ])
 def test_train_cli_refuses_what_is_not_ported(argv, match):

@@ -384,16 +384,16 @@ def test_diffmpc_backward_at_rho_max_turns_on_the_active_set(monkeypatch):
 # -- the policy variants: a delta step (its scales' EMA included) and an
 # estpred step (the MHE estimator's solves on the card) -------------------------
 
-def _variant_step(variant, H, seed=2):
+def _variant_step(variant, H, seed=2, **opts):
     """One f64 training step of a fresh pendulum variant policy (hdim 32,
-    N 2, rho_max 1e3) on the card and on the CPU from the same weights: the
-    loss and the gradients, then the step (Adam, and for delta the EMA of
-    its scales)."""
+    N 2, rho_max 1e3, with the args `opts`) on the card and on the CPU from
+    the same weights: the loss and the gradients, then the step (Adam, and
+    for delta the EMA of its scales)."""
     from deqmpc_tpu_torch.policies import build_policy
 
     env = make_env("pendulum")
     args = {"T": 5, "nq": 1, "hdim": 32, "deq_iter": 2, "policy_variant": variant, "H": H,
-            "dtype": "double", "rho_max": 1e3}
+            "dtype": "double", "rho_max": 1e3, **opts}
     state = build_policy(args, env, "cpu").init(seed).model.state_dict()
     rng = np.random.default_rng(seed)
     obs = np.stack([rng.uniform(0, 2 * np.pi, (8, H)), rng.uniform(-1, 1, (8, H))], axis=-1)
@@ -436,3 +436,28 @@ def test_variant_train_step_on_card_matches_cpu(variant, H):
         # the estimator's Newton steps retried (its last block is singular on
         # the controls), on the card as on the CPU
         assert pol.newton_retries > 0 and pol_cpu.newton_retries > 0
+
+
+# -- the true DEQ gradient and the cost refresh (slice 8) ----------------------------------
+
+@pytest.mark.parametrize("opts", [{"grad_type": "implicit", "max_steps": 4},
+                                  {"fp_type": "broyden", "grad_type": "implicit"},
+                                  {"recompute_Qq": True}], ids=["implicit", "broyden_implicit",
+                                                                "recompute_Qq"])
+def test_slice8_train_step_on_card_matches_cpu(opts):
+    """A base-policy step with the implicit backward (its transpose solve on
+    the card) or with the cost refresh (no solve takes a gradient), card vs
+    CPU, as the variants' steps. Anderson's transpose solve runs 4 steps
+    here: at this fresh init a 1e-14 to 1e-10 move of the backward's
+    cotangent moves the whole CPU gradient by 4-18% at the default 10 steps
+    and by 5e-11 at 4 (measured), in JAX's algorithm as here (ROADMAP, known
+    behaviours); the one-step adjoint w = g moves it by 79% at 4 steps."""
+    (l_card, g_card, pol), (l_cpu, g_cpu, pol_cpu) = _variant_step("base", 1, **opts).values()
+    assert np.isclose(l_card, l_cpu, rtol=1e-6, atol=0)
+    assert set(g_card) == set(g_cpu)
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_card[k], g, rtol=1e-5, atol=1e-5 * float(g.abs().max()),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+    # one implicit backward a round, for the loss's backward and the step's
+    assert pol.backward_solves == pol_cpu.backward_solves == (0 if "recompute_Qq" in opts
+                                                              else 4)

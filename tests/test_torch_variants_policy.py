@@ -87,10 +87,18 @@ def test_build_policy_takes_the_variants_and_refuses_what_waits():
     assert type(build_policy({**base, "addmem": True}, env, "cpu")).__name__ == "DEQMPCPolicyMem"
     assert build_policy({**base, "layer_type": "mlp"}, env, "cpu").model.cfg.layer_type == "mlp"
     assert build_policy({**base, "fp_type": "single"}, env, "cpu").model.cfg.fp_type == "single"
+    # the slice-8 options build (Qscale and grad_coeff are the env's and the
+    # trainer's), a deq_type the JAX CLI does not take is refused
     for key, value in (("fp_type", "multi"), ("fp_type", "broyden"), ("grad_type", "implicit"),
                        ("grad_type", "last_step_grad"), ("recompute_Qq", True),
-                       ("compute_dtype", "bf16"), ("Qscale", 2.0), ("grad_coeff", True)):
-        with pytest.raises(NotImplementedError, match=key):
-            build_policy({**base, key: value}, env, "cpu")
+                       ("inner_deq_iters", 3)):
+        pol = build_policy({**base, key: value}, env, "cpu")
+        assert getattr(pol.cfg, key) == value and getattr(pol.model.cfg, key, value) == value
+    assert build_policy({**base, "compute_dtype": "bf16"}, env,
+                        "cpu").model.cfg.compute_dtype == torch.bfloat16
+    for key, value in (("Qscale", 2.0), ("grad_coeff", True)):
+        build_policy({**base, key: value}, env, "cpu")
+    with pytest.raises(NotImplementedError, match="deq_type"):
+        build_policy({**base, "deq_type": "mlp"}, env, "cpu")
     with pytest.raises(ValueError, match="H >= 2"):
         build_policy({**base, "policy_variant": "estpred", "H": 1}, env, "cpu")

@@ -2,7 +2,10 @@
 package's (f64 solver, its network call and NewtonAL solves jitted) and
 the port's, loaded with the same perturbed f64 parameters; the pendulum
 batch they are held on; the JAX training step's reference, the port's
-step, and the check between them. Imported by `test_torch_variants*.py`."""
+step, and the check between them. `opts`, (key, value) pairs of the
+fixed point and the cost refresh (`fp_type`, `grad_type`, `recompute_Qq`),
+go to both policies' configs. Imported by `test_torch_variants*.py` and
+`test_torch_slice8_train.py`."""
 import functools
 import types
 
@@ -14,6 +17,7 @@ import jax.numpy as jnp
 
 from deqmpc_tpu.envs import PendulumEnv as JaxPendulum
 from deqmpc_tpu.policies import policy_variants as jax_pv
+from deqmpc_tpu.policies.deqmpc_policy import DEQMPCPolicy as JaxPolicy
 from deqmpc_tpu.policies.deqmpc_policy import PolicyConfig as JaxPolicyConfig
 from deqmpc_tpu.training import train as jax_train
 from deqmpc_tpu_torch import data as port_data
@@ -27,8 +31,8 @@ HDIM, N, T, H, BSZ = 32, 2, 5, 3, 4
 VARIANTS = {"mem": ("mem", 1, 1, "gcn"), "delta": ("delta", 1, 1, "gcn"),
             "history": ("history", H, 1, "gcn"), "estpred": ("estpred", H, 1, "gcn"),
             "feedback": ("feedback", 1, 1, "gcn"), "q": ("q", 1, 1, "gcn"),
-            "history_joint": ("history", H, 2, "gcn")}
-JAX_CLASSES = {"mem": jax_pv.DEQMPCPolicyMem, "delta": jax_pv.DEQMPCPolicyDelta,
+            "history_joint": ("history", H, 2, "gcn"), "base": ("base", 1, 1, "gcn")}
+JAX_CLASSES = {"base": JaxPolicy, "mem": jax_pv.DEQMPCPolicyMem, "delta": jax_pv.DEQMPCPolicyDelta,
                "history": jax_pv.DEQMPCPolicyHistory,
                "estpred": jax_pv.DEQMPCPolicyHistoryEstPred,
                "feedback": jax_pv.DEQMPCPolicyFeedback, "q": jax_pv.DEQMPCPolicyQ}
@@ -67,14 +71,14 @@ def args_of(name, **kw):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_side(name, seed, jit):
+def _jax_side(name, seed, jit, opts=()):
     """The JAX policy and its perturbed f64 parameters, made once."""
     env = make_env("pendulum")
     cfg = build_policy(args_of(name), env, "cpu").cfg
     jcfg = JaxPolicyConfig(nx=env.nx, nu=env.nu, nq=cfg.nq, T=T, dt=env.dt, hdim=HDIM,
                            layer_type=cfg.layer_type, deq_iter=N,
                            deq_out_type=cfg.deq_out_type, rho_max=cfg.rho_max,
-                           solver_dtype=jnp.float64)
+                           solver_dtype=jnp.float64, **dict(opts))
     variant, h = VARIANTS[name][:2]
     cls = JAX_CLASSES[variant]
     jpol = cls(jcfg, JaxPendulum(), H=h) if variant in ("history", "estpred") else cls(
@@ -88,11 +92,11 @@ def _jax_side(name, seed, jit):
     return jit_pieces(jpol) if jit else jpol, params
 
 
-def pair(name, seed, jit=True):
+def pair(name, seed, jit=True, opts=()):
     """(env, JAX policy, f64 params, a fresh port policy in f64 with them)."""
     env = make_env("pendulum")
-    args = args_of(name)
-    jpol, params = _jax_side(name, seed, jit)
+    args = args_of(name, **dict(opts))
+    jpol, params = _jax_side(name, seed, jit, opts)
     pol = build_policy({**args, "dtype": "double", "rho_max": 1e5}, env, "cpu")
     pol.model.double()  # before loading: the f64 params must not pass through f32
     pol.model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
@@ -111,34 +115,42 @@ def pendulum_batch(H_, seed=11):
 STEP_RTOL = 1e-9
 
 
-def jax_step_reference(name):
+def jax_step_reference(name, opts=(), moves=()):
     """The JAX step's loss, aux and gradients on the variant's batch, with
     the pair's parameters: (params, batch, loss, aux, grads). Jitted whole:
-    it compiles faster than the pieces run eagerly."""
-    _, jpol, params, _ = pair(name, seed=8, jit=False)
+    it compiles faster than the pieces run eagerly. For each relative size
+    in `moves`, the same step from observations moved by it (seeded) is
+    appended: (grads of each moved step)."""
+    _, jpol, params, _ = pair(name, seed=8, jit=False, opts=opts)
     _, loss_fn = jax_train.make_train_step(
         jpol, None, types.SimpleNamespace(qp_solve=True, lastqp_solve=False))
     jbatch = {k: jnp.asarray(np.asarray(v, np.float64))
               for k, v in pendulum_batch(VARIANTS[name][1]).items()}
-    (loss, aux), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        params, jbatch, jnp.ones((N, 3)))
-    return params, jbatch, loss, aux, grads
+    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    (loss, aux), grads = step(params, jbatch, jnp.ones((N, 3)))
+    out = (params, jbatch, loss, aux, grads)
+    rng = np.random.default_rng(1)
+    for rel in moves:
+        noise = 1 + rel * rng.normal(size=jbatch["obs"].shape)
+        out += (step(params, {**jbatch, "obs": jbatch["obs"] * noise}, jnp.ones((N, 3)))[1],)
+    return out
 
 
-def port_step(name, pol=None):
+def port_step(name, pol=None, opts=()):
     """The port's loss dict on the same batch, after its backward."""
     if pol is None:
-        pol = pair(name, seed=8, jit=False)[3]
+        pol = pair(name, seed=8, jit=False, opts=opts)[3]
     d = train.loss_fn(pol, train.to_device(pendulum_batch(VARIANTS[name][1]), "cpu",
                                            torch.float64))
     d["loss"].backward()
     return pol, d
 
 
-def check_step(pol, d, ref):
+def check_step(pol, d, ref, grad_rel=None):
     """Loss and loss_end at rtol STEP_RTOL; every gradient at rtol STEP_RTOL
-    and atol STEP_RTOL of the tensor's largest entry (a parameter the
-    forward does not read has no torch gradient and a zero JAX one)."""
+    and atol STEP_RTOL of the tensor's largest entry, or `grad_rel[key]` of
+    it where given (a parameter the forward does not read has no torch
+    gradient and a zero JAX one)."""
     _, _, loss, aux, grads = ref
     for key, a, b in (("loss", d["loss"], loss), ("loss_end", d["loss_end"], aux["loss_end"])):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=STEP_RTOL, atol=0,
@@ -150,5 +162,6 @@ def check_step(pol, d, ref):
         if got[key].grad is None:
             assert not g.numpy().any(), key
             continue
-        tol = dict(rtol=STEP_RTOL, atol=STEP_RTOL * float(g.abs().max()))
+        rel = STEP_RTOL if grad_rel is None else max(STEP_RTOL, grad_rel[key])
+        tol = dict(rtol=STEP_RTOL, atol=rel * float(g.abs().max()))
         np.testing.assert_allclose(got[key].grad.numpy(), g.numpy(), **tol, err_msg=key)
