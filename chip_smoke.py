@@ -18,8 +18,8 @@ Phases, each announced on a line of its own with the seconds since start:
      sample per case that must come back NaN while its neighbours stay
      finite (a batch of one: checked SPD, then not SPD): the kernel the
      wrapper picks at every shape, and the block kernel by name at the
-     shapes the warp kernel takes; then, at the seven shapes of
-     TIMED_SHAPES, both kernels' call time and device time
+     shapes the warp kernel takes; then, at the shapes of TIMED_SHAPES
+     ((128,5,16) in f64 too), both kernels' call time and device time
      (torch.profiler) beside the plain version, the dense-Cholesky
      library call and the bound;
   4. load: `checkpoints/rexquad_deqmpc` through the port's own reader,
@@ -139,10 +139,26 @@ Phases, each announced on a line of its own with the seconds since start:
      (Broyden, Broyden implicit, multi last-step, multi BPTT, bf16,
      `--grad_coeff --val_every 1`: the step-0 ratios card vs CPU in f64 and
      the coefficients after each step);
- 30. train config #3 with `Qscale` 2.
+ 30. train config #3 with `Qscale` 2;
+ 31. train config #4 from its checkpoint with the args `--dtype double` sets
+     (the solver in f64 at rho_max 1e8, the network in f32) as config #4:
+     step 0 card vs CPU, the sign flip rejected, 3 steps, every solve through
+     the warp kernel at (128,5,16) f64, 6 backward solves a step;
+ 32. the train CLI (`train.main`) on config #1 from a fresh init with
+     CLI_FLAGS (`--lr_schedule cosine --data_noise_type 2 --loss_type l2
+     --policy_out_type 2 --kernel_width 5 --num_trajs_frac 0.5 --start_iter 201
+     --max_train_steps 205 --val_every 2 --save`), into a temporary directory:
+     finite losses, metrics.jsonl with the JAX CLI's keys, each step's rate the
+     schedule's at the optimizer's count, the checkpoint reloaded, all warp;
+ 33. `training/profile_step.py --n_rep 2` at its defaults (cartpole1link, T
+     10, hdim 256, bsz 128): the four times finite, all warp at (128,10,5);
+ 34. `rexquad_deqmpc` through `train.main --eval --eval_x_window` (32 x 10
+     ticks, the start states inside the window, all warp), then
+     `check_param_sensitivity` on a bsz-32 batch: finite losses, the base
+     loss card vs CPU within STEP0_RTOL.
 Phase 3 also holds the kernels at the estimator's shape (128,3,3) and at
 T = 1, (128,1,3) and (32,1,16).
-Phases 1-3 run first, alone. Phases 4-10 and 12-30 then run in the
+Phases 1-3 run first, alone. Phases 4-10 and 12-34 then run in the
 worker processes of LANES, six at once, each lane's phases in turn
 (each keeps the card idle over 95% of its time, so they share it);
 their times are taken under that sharing. Phase 11 runs last, alone.
@@ -163,13 +179,16 @@ estpred, feedback, q, history_joint}, serve_variants_{mem, delta,
 feedback, q}, train_rexquad_implicit, train_rexquad_recompute,
 serve_rexquad_recompute, serve_rexquad_bf16, train_slice8_{broyden,
 broyden_implicit, multi_last_step, multi_bptt, bf16, grad_coeff},
-train_flying_qscale.
+train_flying_qscale, train_rexquad_double, train_pendulum_cli, profile_step,
+eval_x_window.
 """
 import argparse
 import concurrent.futures
 import dataclasses
+import functools
 import multiprocessing
 import json
+import os
 import re
 import sys
 import time
@@ -235,6 +254,7 @@ KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (64, 20, 18), (4, 200, 18), SERVE_S
                  MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40), *STREAM_SHAPES, *NEW_SHAPES,
                  MHE_SHAPE, *T1_SHAPES]
 TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
+                (MAIN_SHAPE, torch.float64),  # config #4's step under --dtype double
                 ((1024, 5, 16), torch.float32), ((128, 5, 3), torch.float32),
                 ((64, 20, 18), torch.float64), ((1, 5, 16), torch.float32),
                 ((BENCH_FLEET, 5, 16), torch.float32),
@@ -448,9 +468,13 @@ def path_counts(bt, policy, before):
     `before` (a dict of the policy's counts taken at the start), and the
     interior-point path's dense KKT solves (forward and backward)."""
     now = policy_counts(policy)
+    return {**launch_counts(bt), **{k: now[k] - before[k] for k in now}}
+
+
+def launch_counts(bt):
+    """Launches since `reset_counts`, in all and by kernel."""
     return {"launches": bt.block_tridiag_solve.launches,
-            "launches_by_kernel": dict(bt.block_tridiag_solve.launches_by_kernel),
-            **{k: now[k] - before[k] for k in now}}
+            "launches_by_kernel": dict(bt.block_tridiag_solve.launches_by_kernel)}
 
 
 def policy_counts(policy):
@@ -531,10 +555,13 @@ def flip_qp_layer_backward(pdipm):
 
 def policy_in(build_policy, args, env, dev, dtype, obstacles=None):
     """The policy `args` describe, with its solver (and, for f64, its
-    network) in `dtype` and the args' rho_max (1e5 unless they say)."""
-    rho_max = args.get("rho_max") or 1e5
-    p = build_policy({**args, "dtype": "double" if dtype == torch.float64 else "float32",
-                      "rho_max": rho_max}, env, dev, obstacles=obstacles)
+    network) in `dtype` and the args' rho_max (1e5 unless they say). Args
+    with `dtype` double (`--dtype double`) keep the solver in f64 and
+    rho_max 1e8 unless they say, whatever the network's dtype."""
+    double = args.get("dtype") == "double"
+    rho_max = args.get("rho_max") or (1e8 if double else 1e5)
+    p = build_policy({**args, "dtype": "double" if double or dtype == torch.float64
+                      else "float32", "rho_max": rho_max}, env, dev, obstacles=obstacles)
     p.model.to(dtype)
     return p
 
@@ -1798,7 +1825,8 @@ def phase_serve_variant(name):
         with tempfile.TemporaryDirectory(prefix="smoke_ckpt_", dir=".") as tmp:
             argv = ["--env", "pendulum", "--T", "5", "--deq_iter", "6", "--hdim", "256",
                     "--bsz", "32", "--max_train_steps", "1", "--val_every", "1", "--save",
-                    "--name", name, "--models_dir", tmp, *VARIANT_FLAGS[name]]
+                    "--name", name, "--models_dir", tmp, "--logdir", f"{tmp}/logs",
+                    *VARIANT_FLAGS[name]]
             trained = c.train.main(argv)
             check(trained["checkpoint"] and trained["policy_variant"] == name,
                   f"variant {name}: the train CLI wrote {trained['checkpoint']}")
@@ -1907,6 +1935,227 @@ def phase_train_slice8(name):
     return run
 
 
+class solve_shapes:
+    """Within the block, the (shape of b, dtype) of every block-tridiagonal
+    solve the port's NewtonAL makes, forward and backward, in a set."""
+
+    def __init__(self, newton_al):
+        self.newton_al, self.shapes = newton_al, set()
+
+    def __enter__(self):
+        solve = self.solve = self.newton_al.block_tridiag_solve
+
+        def record(D, O, b):
+            self.shapes.add((tuple(b.shape), str(b.dtype)))
+            return solve(D, O, b)
+
+        self.newton_al.block_tridiag_solve = record
+        return self.shapes
+
+    def __exit__(self, *exc):
+        self.newton_al.block_tridiag_solve = self.solve
+
+
+def check_warp_only(counts, what):
+    """Every launch through the warp kernel, where the path's solves are not
+    counted apart (a CLI that builds its own policy)."""
+    by = counts["launches_by_kernel"]
+    check(counts["launches"] > 0 and by["warp"] == counts["launches"] and by["block"] == 0,
+          f"{what}: not every solve went through the warp kernel: {counts}")
+
+
+def phase_train_rexquad_double(c):
+    """Config #4 from its checkpoint with the args `--dtype double` sets: the
+    solver in f64 at rho_max 1e8, the network in f32; as config #4
+    (`train_config`): step 0 card vs CPU (the f32 network's loss; the whole
+    policy in f64, loss and gradient norm), the sign flip rejected by the
+    f64 check, TRAIN_STEPS steps, every solve through the warp kernel at
+    (TRAIN_BSZ, 5, 16) f64, 6 backward solves a step."""
+    args = {**c.args, "dtype": "double", "rho_max": None}
+    phase("train: config #4 --dtype double", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
+    with solve_shapes(c.newton_al) as shapes:
+        tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, c.state, args, c.env,
+                          c.expert_batch(args["env"], c.env, 0, args["T"]), sensitivity=False)
+    tr["solve_shapes"] = sorted(shapes)
+    for s_ in tr["steps"]:
+        print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+    phase("train: config #4 --dtype double done",
+          **{k: v for k, v in tr.items() if k != "steps"})
+    check_train(tr, "config-#4 --dtype double training", backward=6)
+    check(shapes == {((TRAIN_BSZ, 5, 16), "torch.float64")},
+          f"--dtype double: solves at {sorted(shapes)}")
+    return tr, tr["counts"]
+
+
+# the train CLI on config #1 with the flags slice 9 ported. optax's cosine
+# decay refuses max_train_steps <= 200 (its decay_steps less the 200 warmup
+# steps must be positive), so the run starts at --start_iter 201: steps
+# 202-204, the rate at the optimizer's counts 0-2, not at the loop's index
+CLI_FLAGS = ["--env", "pendulum", "--T", "5", "--deq_iter", "6", "--hdim", "256",
+             "--bsz", str(TRAIN_BSZ), "--lr_schedule", "cosine", "--data_noise_type", "2",
+             "--loss_type", "l2", "--policy_out_type", "2", "--kernel_width", "5",
+             "--num_trajs_frac", "0.5", "--start_iter", "201", "--max_train_steps", "205",
+             "--val_every", "2", "--save", "--name", "cli"]
+CLI_STEPS = (202, 203, 204)
+
+
+def jax_metric_keys(deq_iter):
+    """The scalars of a JAX CLI validation row (`train.py:675-697`)."""
+    keys = {"losses/loss_avg", "losses/loss_end", "val_losses/loss_end", "grad_norm",
+            "time/per_step"}
+    for k in range(deq_iter):
+        keys |= {f"losses/loss{k}", f"losses_opt/loss_opt{k}", f"losses_nn/loss_nn{k}",
+                 f"deq_stats/fwd_err{k}", f"deq_stats/fwd_steps{k}"}
+    return keys
+
+
+def phase_train_pendulum_cli(c):
+    """Config #1 at full width from a fresh init through `train.main` with
+    CLI_FLAGS, its logdir and models_dir in a temporary directory of the
+    checkout: finite losses, metrics.jsonl with JAX's keys, each step's rate
+    the schedule's at the optimizer's count, the checkpoint reloaded (its
+    kernel-width-5 weights into a policy its args build, its optimizer's
+    count), every launch through the warp kernel."""
+    import tempfile
+
+    from deqmpc_tpu_torch.utils.checkpoint import read_port_checkpoint
+
+    train = c.train
+    phase("train: the CLI's slice-9 flags", argv=CLI_FLAGS)
+    rates, step = [], train.train_step
+
+    def recording_step(policy, optimizer, batch, **kw):
+        rates.append((train.optimizer_updates(optimizer), optimizer.param_groups[0]["lr"]))
+        return step(policy, optimizer, batch, **kw)
+
+    with tempfile.TemporaryDirectory(prefix="smoke_ckpt_", dir=".") as tmp:
+        argv = [*CLI_FLAGS, "--logdir", f"{tmp}/logs", "--models_dir", f"{tmp}/model"]
+        reset_counts(c.bt)
+        train.train_step = recording_step
+        try:
+            res = train.main(argv)
+        finally:
+            train.train_step = step
+        counts = launch_counts(c.bt)
+        rows = [json.loads(line) for line in open(f"{tmp}/logs/cli/metrics.jsonl")]
+        state, args = c.load_checkpoint(f"{tmp}/model/cli", "cuda")
+        blob = read_port_checkpoint(f"{tmp}/model/cli")
+        pol = c.build_policy(args, c.make_env_of(args), "cuda")
+        pol.model.load_state_dict(state)  # strict: the shapes kernel_width 5 makes
+        has_snapshot = os.path.isfile(f"{tmp}/logs/cli/code/deqmpc_tpu_torch/training/train.py")
+    sched = train.make_lr_schedule("cosine", 1e-3, 205)
+    out = {"curve": res["curve"], "rates": rates, "counts": counts,
+           "metrics_steps": [r["step"] for r in rows],
+           "optimizer_count": int(next(iter(blob["optimizer"]["state"].values()))["step"]),
+           "kernel": list(state["cell.Conv_0.kernel"].shape)}
+    phase("train: the CLI's slice-9 flags done", **out)
+    check(all(np.isfinite(r[k]) for r in res["curve"]
+              for k in ("loss_avg", "loss_end", "val_loss_end", "grad_norm")),
+          f"CLI run: non-finite losses {res['curve']}")
+    check(res["steps"] == len(CLI_STEPS) and [r["step"] for r in res["curve"]] == [202, 204],
+          f"CLI run: steps {res['steps']}, rows {[r['step'] for r in res['curve']]}")
+    check(rates == [(k, sched(k)) for k in range(len(CLI_STEPS))],
+          f"CLI run: the rates {rates} are not the schedule's at counts 0-2")
+    check(out["metrics_steps"] == [202, 204]
+          and all(set(r) - {"step"} == jax_metric_keys(6) for r in rows),
+          f"CLI run: metrics.jsonl rows {rows}")
+    check(has_snapshot and out["kernel"][0] == 5 and out["optimizer_count"] == len(CLI_STEPS)
+          and args["lr_schedule"] == "cosine",
+          f"CLI run: snapshot {has_snapshot}, checkpoint {out['kernel']}, "
+          f"{out['optimizer_count']} updates")
+    check_warp_only(counts, "the train CLI")
+    return out, counts
+
+
+PROFILE_STEP_SHAPE = (TRAIN_BSZ, 10, 5)  # profile_step's defaults: cartpole1link, T 10
+
+
+def phase_profile_step(c):
+    """`training/profile_step.py --n_rep 2` at its full-width defaults: the
+    four times finite, every solve through the warp kernel at its shape."""
+    from deqmpc_tpu_torch.training import profile_step
+
+    phase("profile_step", n_rep=2)
+    reset_counts(c.bt)
+    with solve_shapes(c.newton_al) as shapes:
+        out = profile_step.main(["--n_rep", "2"])
+    counts = launch_counts(c.bt)
+    out.update(counts=counts, solve_shapes=sorted(shapes))
+    phase("profile_step done", **out)
+    times = ("network_fwd_ms", "full_fwd_ms", "loss_overhead_ms", "train_step_ms")
+    check(all(np.isfinite(out[k]) for k in times) and out["train_step_ms"] > 0
+          and (out["env"], out["T"], out["bsz"], out["hdim"]) == ("cartpole1link", 10,
+                                                                   TRAIN_BSZ, 256),
+          f"profile_step: {out}")
+    check(shapes == {(PROFILE_STEP_SHAPE, "torch.float32")},
+          f"profile_step: solves at {sorted(shapes)}")
+    check_warp_only(counts, "profile_step")
+    return out, counts
+
+
+X_WINDOW = [0.5, 0.5, 0.5] + [0.2] * 3 + [0.3] * 6  # rexquad's start half-widths, Euler space
+SENSITIVITY_BSZ = 32
+
+
+def phase_eval_x_window(c):
+    """`rexquad_deqmpc` through `train.main --eval --eval_x_window`,
+    EPISODES x TICKS, its start states inside the window, every solve
+    through the warp kernel; then `check_param_sensitivity` on a
+    SENSITIVITY_BSZ rexquad batch: finite losses, the base loss card vs CPU
+    within STEP0_RTOL (f32)."""
+    from deqmpc_tpu_torch.training.eval import check_param_sensitivity, param_set_loss
+
+    a = c.args
+    window = ",".join(str(v) for v in X_WINDOW)
+    argv = ["--env", a["env"], "--nq", str(a["nq"]), "--T", str(a["T"]), "--deq_iter",
+            str(a["deq_iter"]), "--hdim", str(a["hdim"]), "--load", "--models_dir",
+            "checkpoints", "--ckpt", "rexquad_deqmpc", "--eval", "--eval_episodes",
+            str(EPISODES), "--eval_ep_len", str(TICKS), "--eval_x_window", window]
+    phase("eval: rexquad_deqmpc --eval_x_window", episodes=EPISODES, ticks=TICKS, window=window)
+    cls, starts = type(c.env), []
+    reset = cls.reset
+
+    @functools.wraps(reset)  # the CLI reads the signature for x_window
+    def recording_reset(self, *args_, **kw):
+        x = reset(self, *args_, **kw)
+        starts.append((kw.get("x_window"), x.detach().cpu().double()))
+        return x
+
+    reset_counts(c.bt)
+    cls.reset = recording_reset
+    try:
+        stats = c.train.main(argv)
+    finally:
+        cls.reset = reset
+    counts = launch_counts(c.bt)
+    (got_window, x0), = starts
+    w = torch.as_tensor(X_WINDOW, dtype=torch.float64)
+    inside = bool((x0[:, :3].abs() <= w[:3]).all() and (x0[:, 6:].abs() <= w[6:]).all())
+    batch = {k: v[:SENSITIVITY_BSZ] for k, v in c.expert_batch(a["env"], c.env, 2,
+                                                                  a["T"]).items()}
+    pol = c.build_policy(a, c.env, "cuda")
+    pol.model.load_state_dict(c.state)
+    sens = check_param_sensitivity(a, c.env, pol, batch)
+    cpu = c.build_policy(a, c.env, "cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in c.state.items()})
+    base_cpu = param_set_loss(a, cpu, batch)
+    out = {**stats, "counts": counts, "starts_inside": inside,
+           "start_abs_max": x0.abs().amax(0).tolist(), "sensitivity": sens,
+           "base_loss_cpu": base_cpu,
+           "base_loss_gap_card_vs_cpu": rel_gap(sens["base_loss"], base_cpu)}
+    phase("eval: rexquad_deqmpc --eval_x_window done", **out)
+    check(got_window is not None and list(got_window) == X_WINDOW and inside,
+          f"--eval_x_window: the window {got_window}, starts {out['start_abs_max']}")
+    check(stats["n_nan_episodes"] == 0 and np.isfinite(stats["mean_reward"]),
+          f"--eval_x_window: {stats}")
+    check(all(np.isfinite(v) for v in sens.values()) and len(sens) == 4,
+          f"check_param_sensitivity: {sens}")
+    check(out["base_loss_gap_card_vs_cpu"] <= STEP0_RTOL[torch.float32]["loss"],
+          f"check_param_sensitivity: base loss card {sens['base_loss']} vs CPU {base_cpu}")
+    check_warp_only(counts, "the eval with --eval_x_window")
+    return out, counts
+
+
 PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rexquad,
           "train_pendulum": phase_train_pendulum, "serve_pendulum": phase_serve_pendulum,
           "serve_streaming": phase_serve_streaming, "train_streaming": phase_train_streaming,
@@ -1934,7 +2183,11 @@ PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rex
           "serve_rexquad_recompute": phase_serve_new(CKPT, {"recompute_Qq": True}, ticks=TICKS),
           "serve_rexquad_bf16": phase_serve_new(CKPT, {"compute_dtype": "bf16"}, ticks=TICKS),
           **{f"train_slice8_{n}": phase_train_slice8(n) for n in SLICE8_FLAGS},
-          "train_flying_qscale": phase_train_new(FLYING_CKPT, "mpc", {"Qscale": 2.0})}
+          "train_flying_qscale": phase_train_new(FLYING_CKPT, "mpc", {"Qscale": 2.0}),
+          "train_rexquad_double": phase_train_rexquad_double,
+          "train_pendulum_cli": phase_train_pendulum_cli,
+          "profile_step": phase_profile_step,
+          "eval_x_window": phase_eval_x_window}
 # The phases run in LANES worker processes at once, each lane's in turn: a
 # phase keeps the card idle over 95% of its time (its host dispatches the
 # ops one by one), so three host threads share the card with little
@@ -1946,15 +2199,16 @@ LANES = (("serve_flying_obstacles", "train_streaming", "train_rexquad_implicit")
          ("serve_flying", "serve_streaming", "train_rexquad", "train_rexquad_recompute",
           "train_slice8_multi_bptt"),
          ("serve_cartpole", "train_flying", "train_cartpole", "serve_rexquad", "train_pendulum",
-          "serve_pendulum", "serve_rexquad_recompute"),
+          "serve_pendulum", "serve_rexquad_recompute", "eval_x_window"),
          ("serve_flying_diffmpc", "train_diffmpc", "serve_pendulum_diffmpc", "train_ip",
           "serve_ip", "serve_rexquad_bf16", "train_flying_qscale"),
          ("serve_flying_aware", "train_variants_mem", "train_variants_delta", "train_variants_q",
           "serve_variants_mem", "serve_variants_delta", "train_slice8_broyden",
-          "train_slice8_broyden_implicit", "train_slice8_bf16"),
+          "train_slice8_broyden_implicit", "train_slice8_bf16", "train_pendulum_cli",
+          "profile_step"),
          ("train_variants_history", "train_variants_estpred", "train_variants_feedback",
           "train_variants_history_joint", "serve_variants_feedback", "serve_variants_q",
-          "train_slice8_multi_last_step", "train_slice8_grad_coeff"))
+          "train_slice8_multi_last_step", "train_slice8_grad_coeff", "train_rexquad_double"))
 LANE_THREADS = 2  # torch's CPU threads per lane (the CPU references)
 
 
@@ -2040,7 +2294,7 @@ def main(argv=None) -> int:
     for row in timings:
         print(f"[chip_smoke]   timing {json.dumps(row)}", flush=True)
 
-    # -- 4-10, 12-30. the paths, in LANES worker processes ------------------------
+    # -- 4-10, 12-34. the paths, in LANES worker processes ------------------------
     lanes = [[n for n in lane if selected is None or n in selected] for lane in LANES]
     lanes = [lane for lane in lanes if lane]
     phase("paths", lanes=lanes)

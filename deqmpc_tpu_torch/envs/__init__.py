@@ -2,11 +2,11 @@
 from .base import Env
 from .cartpole import Cartpole2linkEnv, CartpoleEnv
 from .flying_cartpole import FlyingCartpole
-from .pendulum import PendulumEnv
+from .pendulum import IntegratorEnv, PendulumEnv
 from .quadrotor import RexQuadrotor
 
-__all__ = ["Env", "CartpoleEnv", "Cartpole2linkEnv", "FlyingCartpole", "PendulumEnv",
-           "RexQuadrotor", "make_env", "make_env_of"]
+__all__ = ["Env", "CartpoleEnv", "Cartpole2linkEnv", "FlyingCartpole", "IntegratorEnv",
+           "PendulumEnv", "RexQuadrotor", "make_env", "make_env_of"]
 
 
 def make_env(name: str, **kwargs):
@@ -17,6 +17,8 @@ def make_env(name: str, **kwargs):
         return PendulumEnv(stabilization=False)
     if name == "pendulum_stabilize":
         return PendulumEnv(stabilization=True)
+    if name == "integrator":
+        return IntegratorEnv()
     if name in ("cartpole1link", "cartpole-v0"):
         return CartpoleEnv(nx=4, dt=0.05)
     if name == "cartpole2link":
@@ -32,7 +34,7 @@ def make_env(name: str, **kwargs):
         kwargs.setdefault("n_obstacles", 160)
         kwargs.setdefault("obstacle_radius", 0.4)
         return FlyingCartpole(obstacles=True, **kwargs)
-    raise ValueError(f"env not ported yet: {name}")
+    raise ValueError(f"unknown env: {name}")
 
 
 def make_env_of(args):

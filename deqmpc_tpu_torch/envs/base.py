@@ -4,7 +4,9 @@ Port of `deqmpc_tpu/envs/base.py`. A subclass defines `dynamics(x, u)`,
 one discrete step that broadcasts over leading dims (JAX wrote it for
 one sample and lifted it with `vmap`). Jacobians come from
 `torch.func.vmap(torch.func.jacfwd(...))` and keep the contract
-`(x_next, (Jx, Ju))` of `envs/base.py:60-82`.
+`(x_next, (Jx, Ju))` of `envs/base.py:60-82`; `finite_diff_derivatives`
+is the central-difference oracle of the tests and `rollout` rolls a
+control sequence out (`envs/base.py:84-104,135-146`).
 """
 from __future__ import annotations
 
@@ -72,6 +74,31 @@ class Env:
         Jx = J[..., :nx].reshape(*lead, nx, nx)
         Ju = J[..., nx:].reshape(*lead, nx, nu)
         return x_next.reshape(*lead, nx), (Jx, Ju)
+
+    def finite_diff_derivatives(self, x: torch.Tensor, u: torch.Tensor, eps: float = 1e-6
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Central-difference Jacobians (Jx, Ju), one input dim at a time
+        over the whole batch: (f(xu + eps e_i) - f(xu - eps e_i)) / (2 eps)."""
+        nx, nu = self.nx, self.nu
+        lead = x.shape[:-1]
+        xf, uf = x.reshape(-1, nx), u.reshape(-1, nu)
+        cols = []
+        for i in range(nx + nu):
+            d = torch.zeros(nx + nu, dtype=x.dtype, device=x.device)
+            d[i] = eps
+            xp = self.dynamics(xf + d[:nx], uf + d[nx:])
+            xm = self.dynamics(xf - d[:nx], uf - d[nx:])
+            cols.append((xp - xm) / (2 * eps))
+        J = torch.stack(cols, dim=-1)
+        return J[..., :nx].reshape(*lead, nx, nx), J[..., nx:].reshape(*lead, nx, nu)
+
+    def rollout(self, x0: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+        """The states (..., T+1, nx) from x0 (..., nx) under the controls
+        us (..., T, nu), x0 first (no clipping, as JAX's `lax.scan`)."""
+        xs = [x0]
+        for t in range(us.shape[-2]):
+            xs.append(self.dynamics(xs[-1], us[..., t, :]))
+        return torch.stack(xs, dim=-2)
 
     # -- gym-style API (state passed explicitly) -----------------------------
     def reset(self, generator: torch.Generator, bsz: int, device="cuda",

@@ -1,7 +1,9 @@
-"""Torque-limited pendulum (port of `deqmpc_tpu/envs/pendulum.py:25-82`).
+"""Torque-limited pendulum and the double integrator (port of
+`deqmpc_tpu/envs/pendulum.py:25-101`).
 
 theta = 0 hangs down, the upright target is theta = pi, and the angle
 is wrapped to [0, 2*pi). It is the n = nx + nu = 3 case of the solver.
+The double integrator is x = (p, v), pdot = v, vdot = u, stepped exactly.
 """
 from __future__ import annotations
 
@@ -59,3 +61,28 @@ class PendulumEnv(Env):
         else:
             lo, hi = [0.0, -1.0], [2 * math.pi, 1.0]
         return self._uniform(generator, bsz, lo, hi).to(device=resolve_device(device), dtype=dtype)
+
+
+class IntegratorEnv(Env):
+    """Double integrator (`pendulum.py:79-101`)."""
+
+    def __init__(self, dt: float = 0.1):
+        self.nx, self.nu, self.nq = 2, 1, 1
+        self.dt = dt
+        self._max_episode_steps = 100
+        self.spec_id = "Integrator-v0"
+        self.action_space = Spaces(np.array([-1.0]), np.array([1.0]))
+        self.Qlqr = np.array([1.0, 1.0], dtype=np.float64)
+        self.Rlqr = np.array([1e-4], dtype=np.float64)
+        self.targ_pos = np.zeros(2)
+
+    def dynamics(self, x, u):
+        p, v, a = x[..., 0:1], x[..., 1:2], u[..., 0:1]
+        return torch.cat([p + self.dt * v + 0.5 * self.dt**2 * a, v + self.dt * a], dim=-1)
+
+    def reward(self, x, u):
+        return -(torch.sum(x**2, dim=-1) + 0.01 * torch.sum(u**2, dim=-1))
+
+    def reset(self, generator, bsz, device="cuda", dtype=torch.float32):
+        return self._uniform(generator, bsz, [-2.0, -2.0], [2.0, 2.0]).to(
+            device=resolve_device(device), dtype=dtype)

@@ -92,8 +92,11 @@ class RexQuadrotor(Env):
         cost = cost + torch.sum(u**2 * self._const("Rlqr", u) / 2, dim=-1) / 10
         return torch.where(cost > 500, -cost, torch.exp(-cost / 2 + 2))
 
-    def reset(self, generator, bsz, device="cuda", dtype=torch.float32):
-        x = self._uniform(generator, bsz, -self.x_window, self.x_window)
+    def reset(self, generator, bsz, device="cuda", dtype=torch.float32, x_window=None):
+        """Uniform start in the Euler-space window; `x_window` overrides the
+        per-dim half-widths (`quadrotor.py:96-101`)."""
+        w = np.asarray(self.x_window if x_window is None else x_window, dtype=np.float64)
+        x = self._uniform(generator, bsz, -w, w)
         mrp = quat2mrp(euler_to_quaternion(x[:, 3:6]))
         x = torch.cat([x[:, :3], mrp, x[:, 6:]], dim=-1)
         return x.to(device=resolve_device(device), dtype=dtype)

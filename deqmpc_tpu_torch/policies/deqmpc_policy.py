@@ -43,8 +43,9 @@ streams. `layer_type="mlp"` is the flat trunk; `obstacle_net_input` with a
 field gives the network the nearest-sphere features of every knot.
 
 The fixed point and the trunk (`deqmpc_policy.py:56-85`): `fp_type`,
-`inner_deq_iters`, `grad_type`, `fp_m`, `fp_max_steps` and `compute_dtype`
-go to the network (`models/deq_layer.py`). Each round's solver stats land
+`grad_type`, `fp_m`, `fp_max_steps` and `compute_dtype` go to the network
+(`models/deq_layer.py`); as in JAX, the config has no `inner_deq_iters`, so
+`fp_type` multi applies the cell the layer's default 4 times. Each round's solver stats land
 in `policy_out["deq_stats"]`, {"fwd_err", "fwd_steps"} stacked over the
 rounds, when the network runs a solver (`deqmpc_policy.py:220-235`).
 `recompute_Qq` (`deqmpc_policy.py:194-207`): every tracking solve refreshes
@@ -91,7 +92,6 @@ class PolicyConfig:
     fp_type: str = "anderson"  # "single" | "multi" | "broyden" | "anderson"
     fp_max_steps: int = 10
     fp_m: int = 5
-    inner_deq_iters: int = 4  # fp_type "multi"
     grad_type: str = "fp_grad"
     compute_dtype: Any = None  # the trunk's matmul dtype: None or torch.bfloat16
     # the cost refresh between AL iterations from the network
@@ -145,7 +145,7 @@ class DEQMPCPolicy:
             nx=cfg.nx, nu=cfg.nu, nq=cfg.nq, T=cfg.T, dt=cfg.dt, hdim=cfg.hdim,
             layer_type=cfg.layer_type, deq_iter=cfg.deq_iter, fp_type=cfg.fp_type,
             fp_m=cfg.fp_m, fp_max_steps=cfg.fp_max_steps, kernel_width=cfg.kernel_width,
-            inner_deq_iters=cfg.inner_deq_iters, grad_type=cfg.grad_type,
+            grad_type=cfg.grad_type,
             compute_dtype=cfg.compute_dtype,
             obstacle_centers=torch.as_tensor(obstacles.centers).cpu().numpy() if aware else None,
             obstacle_radius=float(obstacles.radius) if aware else 0.0,
@@ -319,13 +319,13 @@ def build_policy(args: Mapping[str, Any], env, device="cuda",
     `NNMPCPolicy` when `deq` is false, else the `policy_variant` (`addmem`
     meaning mem; history and estpred with the args' `H`), with the args'
     trunk (`layer_type`, `compute_dtype` "f32" or "bf16"), fixed point
-    (`fp_type`, `inner_deq_iters`, `grad_type`, `m`, `max_steps`),
+    (`fp_type`, `grad_type`, `m`, `max_steps`),
     `deq_out_type`, `qp_solve`, `lastqp_solve`, `recompute_Qq`,
     `solver_type` and `obstacle_net_input`. `obstacles`: the env's field
     (`training.train.build_obstacles`), or None. A `deq_type` other than
-    deq and nn raises NotImplementedError. `inner_deq_iters` reaches the
-    network here; the JAX CLI takes the flag and never hands it on, so
-    JAX runs 4 whatever it says (ROADMAP C8)."""
+    deq and nn raises NotImplementedError. `inner_deq_iters` is not read:
+    the JAX CLI takes the flag and never hands it on, so multi applies the
+    cell 4 times whatever it says (ROADMAP C6)."""
     a = dict(args)
     for key, ok in NOT_PORTED.items():
         if key in a and a[key] not in ok:
@@ -354,7 +354,7 @@ def build_policy(args: Mapping[str, Any], env, device="cuda",
         solver_type=a.get("solver_type", "al"), qp_iter=a.get("qp_iter", 1),
         ip_eps=a.get("eps", 1e-2), ip_grad_method=a.get("ip_grad_method", "analytic"),
         obstacle_net_input=a.get("obstacle_net_input", False),
-        inner_deq_iters=a.get("inner_deq_iters", 4), grad_type=a.get("grad_type", "fp_grad"),
+        grad_type=a.get("grad_type", "fp_grad"),
         recompute_Qq=a.get("recompute_Qq", False),
         compute_dtype=torch.bfloat16 if a.get("compute_dtype", "f32") == "bf16" else None,
     )

@@ -38,6 +38,9 @@ under the refresh the last Newton call's implicit backward reaches the
 refreshed cost, which carries no gradient: the round's network output
 then gets none through the solve.
 
+`kkt_residuals` (`al_mpc.py:388-400`) gives the per-sample norm of the
+clamped residuals and the cost of a trajectory, for logs and tests.
+
 `state_estimator=True` is the MHE flavour (`al_mpc.py:77-91`): no
 initial-state row and no control box, in every Newton call, dual update
 and implicit backward; the duals hold the T*nx eq rows (one of them a
@@ -299,3 +302,14 @@ class ALMPC:
             stopped = stopped | (cur_res >= prev_res) | (torch.amax(rho) >= self.rho_max)
             prev_res = torch.minimum(prev_res, cur_res)
         return self._result(xu, lam, rho, stopped.expand(x0.shape[0]))
+
+    # -- diagnostics ----------------------------------------------------------
+    def kkt_residuals(self, x0, cost: QuadCost, x, u, obstacles: Optional[ObstacleSet] = None):
+        """(||res_clamp|| per sample, cost per sample) of the trajectory
+        (x, u) from x0; `obstacles`: the selected set, as `solve` takes it."""
+        self._check_obstacles(obstacles)
+        xu = torch.cat([x, u], dim=-1)
+        _, res_c = full_residuals(self.dyn, x, u, x0, self.u_lower, self.u_upper, obstacles,
+                                  self.state_estimator)
+        return (torch.linalg.vector_norm(res_c, dim=-1),
+                compute_cost(xu, cost.Q.to(xu.dtype), cost.q.to(xu.dtype)))

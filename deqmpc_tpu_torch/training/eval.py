@@ -30,6 +30,14 @@ env's field in its network as well as in its solver. The checkpoint's
 args build the policy and the env whatever options they carry (the fixed
 point, `recompute_Qq`, `compute_dtype`, a FlyingCartpole's `Qscale`);
 `--recompute_Qq` turns the cost refresh on for weights trained without it.
+The args' `eval_x_window` (a comma string or an array of per-dim
+half-widths in Euler space) replaces the env's start window, for the envs
+whose `reset` takes one (RexQuadrotor, FlyingCartpole); any other env
+raises, as in JAX (`eval.py:66-80`). `check_param_sensitivity`
+(`eval.py:137-169`) gives the imitation loss of the policy's parameters and
+of each set moved by `s * std * N(0, 1)` per floating tensor, the draws from
+a seeded `torch.Generator`; `perturb_params` makes one such set and
+`param_set_loss` evaluates any set on its own.
 
 CLI (`--ep_len` defaults to the env's `_max_episode_steps`: 100 ticks for
 RexQuadrotor and FlyingCartpole, 200 for the pendulum and the cartpole, as
@@ -44,6 +52,8 @@ at `--ep_len 360`):
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/rexquad_deqmpc --recompute_Qq
   python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/flying_obstacles_aware_r5 \
       --episodes 64 --ep_len 360
+  python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/cartpole_deqmpc --episodes 100
+  python -m deqmpc_tpu_torch.training.eval --ckpt checkpoints/pendulum_sac_deqmpc --episodes 100
 """
 from __future__ import annotations
 
@@ -51,14 +61,14 @@ import argparse
 import json
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..envs import make_env_of
-from ..policies import build_policy
+from ..policies import build_policy, compute_loss_deqmpc
 from ..utils import angle_idxs_for_env
 from ..utils.checkpoint import load_checkpoint
 from .train import build_obstacles
@@ -103,7 +113,18 @@ def eval_policy(args: Dict, env, policy, n_episodes: int = 32,
     if warm_start is None:
         warm_start = bool(args.get("streaming", False))
     gen = torch.Generator().manual_seed(seed)
-    x = env.reset(gen, n_episodes, device=device)
+    x_window = args.get("eval_x_window")
+    if x_window is not None:
+        import inspect
+
+        if "x_window" not in inspect.signature(env.reset).parameters:
+            raise ValueError(f"--eval_x_window is not supported by {type(env).__name__}.reset "
+                             "(only FlyingCartpole/RexQuadrotor take a start-window override)")
+        x_window = (np.asarray([float(v) for v in x_window.split(",")])
+                    if isinstance(x_window, str) else np.asarray(x_window))
+        x = env.reset(gen, n_episodes, device=device, x_window=x_window)
+    else:
+        x = env.reset(gen, n_episodes, device=device)
     xs, rewards, tick_s = [], [], []
     with torch.inference_mode():
         for t in range(ep_len):
@@ -144,6 +165,64 @@ def eval_policy(args: Dict, env, policy, n_episodes: int = 32,
         "tick_s_warm_median": float(np.median(tick_s[1:])) if warm_start and ep_len > 1 else None,
         **collision,
     }
+
+
+def _batch_tensors(gt_batch: Mapping, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v, device=device)
+            for k, v in gt_batch.items()}
+
+
+def param_set_loss(args: Mapping, policy, gt_batch: Mapping,
+                   state: Optional[Mapping[str, torch.Tensor]] = None) -> float:
+    """The imitation loss (`compute_loss_deqmpc`, no x_init, as JAX's
+    `loss_of`) of the policy's cold forward on the batch's current states,
+    with the parameter set `state` in place of the policy's own (restored
+    after); the batch keeps its dtype."""
+    b = _batch_tensors(gt_batch, policy.device)
+    obs = b["obs"][:, -1] if b["obs"].dim() == 3 else b["obs"]
+    mode = dict(qp_solve=args.get("qp_solve", True), lastqp_solve=args.get("lastqp_solve", False))
+    own = None
+    if state is not None:
+        own = {k: v.clone() for k, v in policy.model.state_dict().items()}
+        policy.model.load_state_dict(state)
+    try:
+        with torch.inference_mode():
+            out = policy.forward(obs, **mode)
+            d = compute_loss_deqmpc(policy, b["state"], b["action"], b["mask"], out)
+            return float(d["loss"])
+    finally:
+        if own is not None:
+            policy.model.load_state_dict(own)
+
+
+def perturb_params(state: Mapping[str, torch.Tensor], scale: float,
+                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Every floating tensor t moved by scale * std(t) * N(0, 1) (population
+    std), the draws made on the CPU in t's dtype, tensor by tensor in the
+    state's order; other tensors as they are."""
+    out = {}
+    for k, t in state.items():
+        if t.is_floating_point():
+            z = torch.randn(t.shape, generator=generator, dtype=t.dtype).to(t.device)
+            out[k] = t + scale * torch.std(t, correction=0) * z
+        else:
+            out[k] = t
+    return out
+
+
+def check_param_sensitivity(args: Mapping, env, policy, gt_batch: Mapping,
+                            scales: Sequence[float] = (0.01, 0.03, 0.1),
+                            seed: int = 0) -> Dict[str, float]:
+    """The base loss and, for each scale s, the loss with every floating
+    parameter moved by s * std * N(0, 1) (`eval.py:137-169`): {"base_loss",
+    "loss_at_<s>"}. One generator, seeded once, draws the scales' sets in turn."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {k: v.detach().clone() for k, v in policy.model.state_dict().items()}
+    out = {"base_loss": param_set_loss(args, policy, gt_batch)}
+    for s in scales:
+        out[f"loss_at_{s}"] = param_set_loss(args, policy, gt_batch,
+                                             perturb_params(state, s, gen))
+    return out
 
 
 def card_info() -> Dict[str, str]:

@@ -70,18 +70,49 @@ after the step, on the same batch and outside streaming, by the EMA of the
 rounds' gradient ratios at the output head (`training/grad_coeffs.py`);
 the step's loss and validation take them.
 
+The rest of the JAX CLI's flags (`train.py:40-163,492-722`): `--dtype
+double` puts the solver in f64 with rho_max 1e8 unless `--rho_max` says,
+and `--rho_max`/`--rho_init_max` also set the streaming schedule;
+`--deq_reg`, `--loss_type`, `--policy_out_type` and `--kernel_width` reach
+the policy and its loss. `--lr_schedule cosine` is optax's
+`warmup_cosine_decay_schedule` written out (`make_lr_schedule`), indexed by
+the optimizer's update count (carried in a checkpoint), not by the loop's
+step; a checkpoint saved under the other schedule loads with a fresh
+optimizer and JAX's message. `--num_trajs_frac` cuts the training
+episodes; the loop runs over steps `--start_iter`+1 .. `--max_train_steps`-1
+and the pretrain gate reads `--start_iter`; `--data_noise_type/std/mean`
+noise each batch after `preprocess_batch`, drawn from the sampler's
+generator (`data/noise_utils.py`), `state_noisy` dropped. Under `--save`,
+`<logdir>/<name>/metrics.jsonl` (and TensorBoard where it imports) gets
+the JAX CLI's scalars at every validation, and the package is copied to
+`<logdir>/<name>/code/deqmpc_tpu_torch`. `--warm_start` is parsed and never
+read, and `--inner_deq_iters` never reaches the layer, both as in JAX; the
+raw `--deq`, `--deq_type`, `--qp_solve` and `--lastqp_solve` are
+overwritten by the model type's presets where it sets them.
+`--eval_x_window` is checked against the env before any data is read.
+
+  python -m deqmpc_tpu_torch.training.train --env pendulum --T 5 --deq_iter 6 --hdim 256 \
+      --lr_schedule cosine --data_noise_type 2 --loss_type l2 --policy_out_type 2 \
+      --kernel_width 5 --num_trajs_frac 0.5 --start_iter 201 --max_train_steps 205 \
+      --val_every 2 --save --logdir ./logs [--dtype double --rho_max 1e7]
+  python -m deqmpc_tpu_torch.training.train --env rexquadrotor --nq 6 --T 5 --deq_iter 6 \
+      --hdim 256 --load --models_dir checkpoints --ckpt rexquad_deqmpc --eval \
+      --eval_x_window 0.5,0.5,0.5,0.2,0.2,0.2,0.3,0.3,0.3,0.3,0.3,0.3
+
 `--load` starts from a JAX-package checkpoint (through
 `utils/checkpoint.params_from_jax`) or a port checkpoint (then with its
 optimizer state). `--save` writes a port checkpoint to
-`<models_dir>/<name>` whenever the validation loss improves. Flags of the
-JAX CLI that are not ported raise NotImplementedError.
+`<models_dir>/<name>` whenever the validation loss improves. The parser
+takes every flag of the JAX CLI and the port's own `--device`.
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import json
+import math
 import os
+import shutil
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -90,7 +121,7 @@ import torch
 
 from .. import resolve_device
 from .. import utils
-from ..data import get_gt_data, merge_gt_data, sample_trajectory
+from ..data import add_data_noise, get_gt_data, merge_gt_data, sample_trajectory
 from ..envs import make_env_of
 from ..models.grad_layers import update_scales
 from ..policies import build_policy, compute_loss_deqmpc, compute_loss_deqmpc_hist
@@ -126,10 +157,11 @@ def preprocess_batch(env_name: str, nx: int, batch: Dict[str, np.ndarray]) -> Di
     return batch
 
 
-def split_episodes(gt_trajs: List):
-    """The 90/10 train/validation split of the episodes (`train.py:535-536`):
-    (train arrays, validation arrays)."""
-    n_train = round(len(gt_trajs) * 0.9)
+def split_episodes(gt_trajs: List, num_trajs_frac: float = 1.0):
+    """The 90/10 train/validation split of the episodes (`train.py:535-537`),
+    the training share cut to `num_trajs_frac` of it: (train arrays,
+    validation arrays)."""
+    n_train = round(len(gt_trajs) * 0.9 * num_trajs_frac)
     val_trajs = gt_trajs[round(-len(gt_trajs) * 0.1):]
     return merge_gt_data(gt_trajs, num_trajs=n_train), merge_gt_data(val_trajs)
 
@@ -229,6 +261,53 @@ def make_optimizer(policy, lr: float = 1e-3) -> torch.optim.Optimizer:
     return torch.optim.Adam(policy.model.parameters(), lr=lr)
 
 
+WARMUP_STEPS = 200  # the cosine schedule's linear warmup (`train.py:551-556`)
+
+
+def make_lr_schedule(lr_schedule: str, lr: float, max_train_steps: int
+                     ) -> Optional[Callable[[int], float]]:
+    """None for a constant rate; for "cosine", optax's
+    `warmup_cosine_decay_schedule(init=0.1 lr, peak=lr, warmup_steps=200,
+    decay_steps=max_train_steps, end=0.02 lr)` written out: count -> rate,
+    where count is the number of updates the optimizer has made. Like
+    optax's cosine decay it refuses max_train_steps <= 200."""
+    if lr_schedule == "constant":
+        return None
+    if lr_schedule != "cosine":
+        raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
+    init, peak, end = lr * 0.1, lr, lr * 0.02
+    decay = max_train_steps - WARMUP_STEPS
+    if not decay > 0:
+        raise ValueError("The cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={decay}.")
+    alpha = 0.0 if peak == 0.0 else end / peak
+
+    def schedule(count: int) -> float:
+        if count < WARMUP_STEPS:
+            frac = 1 - min(max(count, 0), WARMUP_STEPS) / WARMUP_STEPS
+            return (init - peak) * frac + peak
+        c = min(float(count - WARMUP_STEPS), float(decay))
+        cosine = 0.5 * (1 + math.cos(math.pi * c / decay))
+        return peak * ((1 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def optimizer_updates(optimizer: torch.optim.Optimizer) -> int:
+    """The updates Adam has made (its `step` count; 0 before the first):
+    the count optax's schedule is indexed by, carried in a checkpoint's
+    optimizer state, whatever the loop's step index."""
+    for state in optimizer.state.values():
+        if "step" in state:
+            return int(state["step"])
+    return 0
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
 def make_loss_fn(streaming_steps: int = 0, pretrain: bool = False) -> Callable:
     """`loss_fn`; with streaming_steps L > 0 the streaming loss of L warm
     forwards; with `pretrain` the network-only loss (no solve, no final
@@ -245,8 +324,10 @@ def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
                loss: Callable = loss_fn, coeffs=None) -> Dict[str, torch.Tensor]:
     """One training step: forward and `loss` (with the rounds' `coeffs`),
     backward, clip, Adam, and for the delta variant the EMA of its scales.
-    Returns the loss, loss_end, the gradient norm before clipping and, when
-    the network runs a solver, the rounds' `deq_stats`, as device tensors.
+    Returns the loss, loss_end, the gradient norm before clipping, the
+    rounds' losses (`losses_iter`, `_opt`, `_nn`, estpred's `losses_x_ests`)
+    and, when the network runs a solver, their `deq_stats`, as device
+    tensors.
     With `timings`, the device is synchronised after each part and its
     host-clock seconds are stored under forward_s, backward_s and
     optimizer_s."""
@@ -272,6 +353,9 @@ def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
         timings.update(forward_s=t1 - t0, backward_s=t2 - t1,
                        optimizer_s=time.perf_counter() - t2)
     out = {"loss": d["loss"].detach(), "loss_end": d["loss_end"].detach(), "grad_norm": gnorm}
+    for key in ("losses_iter", "losses_iter_opt", "losses_iter_nn", "losses_x_ests"):
+        if key in d:
+            out[key] = d[key].detach()
     if "deq_stats" in d:
         out["deq_stats"] = d["deq_stats"]
     return out
@@ -288,32 +372,19 @@ def validate_policy(policy, val_samples: List[Dict[str, torch.Tensor]],
 # -- CLI ------------------------------------------------------------------------
 
 MODEL_TYPES = ["deq-mpc-deq", "deq", "nn", "diff-mpc-deq", "diff-mpc-nn", "deq-mpc-nn"]
+ENVS = ["pendulum", "pendulum_stabilize", "integrator", "cartpole1link", "cartpole2link",
+        "rexquadrotor", "FlyingCartpole", "FlyingCartpole_obstacles",
+        "FlyingCartpole_obstacles_dense"]
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    """The flags of the JAX CLI that the port takes."""
+    """Every flag of the JAX CLI (`train.py:40-163`), with its default, and
+    the port's own `--device`."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--env", type=str, default="pendulum")
-    p.add_argument("--model_type", type=str, default="deq-mpc-deq", choices=MODEL_TYPES)
+    p.add_argument("--env", type=str, default="pendulum", choices=ENVS)
     p.add_argument("--nq", type=int, default=-1)
     p.add_argument("--T", type=int, default=5)
-    p.add_argument("--deq_iter", type=int, default=6)
-    p.add_argument("--hdim", type=int, default=128)
-    p.add_argument("--bsz", type=int, default=128)
-    p.add_argument("--lr", type=float, default=1e-3)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--max_train_steps", type=int, default=20000)
-    p.add_argument("--val_every", type=int, default=100)
-    p.add_argument("--save", action="store_true")
-    p.add_argument("--name", type=str, default=None)
-    p.add_argument("--models_dir", type=str, default="./model")
-    p.add_argument("--load", action="store_true")
-    p.add_argument("--ckpt", type=str, default=None)
-    p.add_argument("--teacher", type=str, default="mpc",
-                   help="the expert data: data/expert_traj_<teacher>-<spec id>_new.pkl")
-    p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--solver_type", type=str, default="al", choices=["al", "ip"],
-                   help="the tracking solve: augmented Lagrangian or interior-point SQP")
+    p.add_argument("--H", type=int, default=1, help="the history variants' window")
     p.add_argument("--qp_iter", type=int, default=1,
                    help="SQP iterations of the interior-point solve")
     p.add_argument("--eps", type=float, default=1e-2,
@@ -321,43 +392,91 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--ip_grad_method", type=str, default="analytic",
                    choices=["analytic", "autodiff", "finite_diff"],
                    help="the interior-point solve's dynamics linearisation")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--lr_schedule", type=str, default="constant", choices=["constant", "cosine"],
+                   help="cosine: 200 warmup steps from 0.1 lr, then a cosine decay to 0.02 lr "
+                        "at --max_train_steps, indexed by the optimizer's update count")
+    p.add_argument("--warm_start", type=bool, default=True,
+                   help="parsed and never read, as in JAX")
+    p.add_argument("--bsz", type=int, default=128)
+    p.add_argument("--deq", action="store_true", help="set by --model_type")
+    p.add_argument("--hdim", type=int, default=128)
+    p.add_argument("--deq_iter", type=int, default=6)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--name", type=str, default=None)
+    p.add_argument("--save", action="store_true",
+                   help="write the port checkpoint, metrics.jsonl and a code snapshot")
+    p.add_argument("--layer_type", type=str, default="gcn", choices=["gcn", "mlp"])
+    p.add_argument("--kernel_width", type=int, default=3, help="the trunk's conv width")
+    p.add_argument("--compute_dtype", choices=["f32", "bf16"], default="f32",
+                   help="the trunk's matmul dtype (parameters, norms and solver stay f32)")
     p.add_argument("--pretrain", action="store_true",
                    help=f"network-only steps (no solve) until step {PRETRAIN_STEPS}")
-    p.add_argument("--streaming", action="store_true")
-    p.add_argument("--streaming_steps", type=int, default=3)
-    p.add_argument("--streaming_start_iter", type=int, default=0)
-    p.add_argument("--linearize_once", action="store_true")
-    p.add_argument("--policy_variant", type=str, default="base", choices=POLICY_VARIANTS)
-    p.add_argument("--addmem", action="store_true", help="the mem variant")
-    p.add_argument("--layer_type", type=str, default="gcn", choices=["gcn", "mlp"])
+    p.add_argument("--model_type", type=str, default="deq-mpc-deq", choices=MODEL_TYPES)
+    p.add_argument("--lastqp_solve", action="store_true", help="set by --model_type")
+    p.add_argument("--qp_solve", action="store_true", help="set by --model_type")
+    p.add_argument("--solver_type", type=str, default="al", choices=["al", "ip"],
+                   help="the tracking solve: augmented Lagrangian or interior-point SQP")
+    p.add_argument("--dtype", type=str, default="float32",
+                   help="the solver's dtype; double: f64, rho_max 1e8 by default")
+    p.add_argument("--data_noise_type", type=int, default=0,
+                   help="0 none, 1 the observation, 2 also the states (dropped), 3 scaled")
+    p.add_argument("--data_noise_std", type=float, default=0.05)
+    p.add_argument("--data_noise_mean", type=float, default=0.3)
     p.add_argument("--deq_out_type", type=int, default=1,
                    help="2: the history variant's joint state and action output (mlp)")
-    p.add_argument("--H", type=int, default=1, help="the history variants' window")
-    p.add_argument("--obstacle_net_input", action="store_true",
-                   help="the network reads the nearest spheres of each knot")
+    p.add_argument("--policy_out_type", type=int, default=1, help="the loss's weights, 0-3")
+    p.add_argument("--loss_type", type=str, default="l1", help="l1, l2 or hinge")
+    p.add_argument("--deq_reg", type=float, default=0.1)
+    p.add_argument("--grad_coeff", action="store_true",
+                   help="per-round loss coefficients from the rounds' head-gradient ratios")
+    p.add_argument("--num_trajs_frac", type=float, default=1.0,
+                   help="the share of the training episodes used")
+    p.add_argument("--rho_init_max", type=float, default=1e4)
+    p.add_argument("--rho_max", type=float, default=None,
+                   help="the penalty cap; default 1e5 (float32) / 1e8 (double)")
+    p.add_argument("--max_train_steps", type=int, default=20000)
+    p.add_argument("--val_every", type=int, default=100)
     p.add_argument("--fp_type", type=str, default="anderson",
                    choices=["single", "multi", "broyden", "anderson"])
     p.add_argument("--inner_deq_iters", type=int, default=4,
-                   help="cell applications a round under --fp_type multi")
+                   help="parsed and never handed on, as in JAX: multi applies the cell 4 times")
     p.add_argument("--grad_type", type=str, default="fp_grad",
                    help="fp_grad (the phantom gradient), implicit, last_step_grad (with "
                         "--fp_type multi); any other value takes the default branch")
-    p.add_argument("--m", type=int, default=5, help="Anderson's memory")
-    p.add_argument("--max_steps", type=int, default=10, help="the fixed-point solver's steps")
+    p.add_argument("--addmem", action="store_true", help="the mem variant")
     p.add_argument("--recompute_Qq", action="store_true",
                    help="refresh the tracking cost from the network between AL iterations")
-    p.add_argument("--compute_dtype", choices=["f32", "bf16"], default="f32",
-                   help="the trunk's matmul dtype (parameters, norms and solver stay f32)")
-    p.add_argument("--grad_coeff", action="store_true",
-                   help="per-round loss coefficients from the rounds' head-gradient ratios")
+    p.add_argument("--obstacle_net_input", action="store_true",
+                   help="the network reads the nearest spheres of each knot")
+    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--linearize_once", action="store_true")
+    p.add_argument("--streaming_steps", type=int, default=3)
+    p.add_argument("--streaming_start_iter", type=int, default=0)
+    p.add_argument("--deq_type", type=str, default="deq", choices=["deq", "nn"])
+    p.add_argument("--policy_variant", type=str, default="base", choices=POLICY_VARIANTS)
     p.add_argument("--Qscale", type=float, default=1.0,
                    help="the FlyingCartpole envs' velocity-weight scale")
+    p.add_argument("--m", type=int, default=5, help="Anderson's memory")
+    p.add_argument("--max_steps", type=int, default=10, help="the fixed-point solver's steps")
+    p.add_argument("--teacher", type=str, default="mpc",
+                   help="the expert data: data/expert_traj_<teacher>-<spec id>_new.pkl")
+    p.add_argument("--load", action="store_true")
     p.add_argument("--eval", action="store_true",
                    help="evaluate the loaded policy in closed loop instead of training")
-    p.add_argument("--eval_episodes", type=int, default=32)
     p.add_argument("--eval_ep_len", type=int, default=None)
+    p.add_argument("--eval_episodes", type=int, default=32)
     p.add_argument("--eval_warm_start", choices=["auto", "on", "off"], default="auto",
                    help="warm-started ticks after tick 0; auto: iff --streaming")
+    p.add_argument("--eval_x_window", type=str, default=None,
+                   help="comma-separated per-dim start half-widths (Euler space) for the eval, "
+                        "in place of the env's (RexQuadrotor and FlyingCartpole)")
+    p.add_argument("--ckpt", type=str, default=None)
+    p.add_argument("--start_iter", type=int, default=-1,
+                   help="the loop runs over steps start_iter+1 .. max_train_steps-1")
+    p.add_argument("--logdir", type=str, default="./logs")
+    p.add_argument("--models_dir", type=str, default="./model")
+    p.add_argument("--device", type=str, default="cuda")
     return p
 
 
@@ -365,7 +484,7 @@ def apply_model_type_presets(args):
     """What each model type sets (`train.py:167-188`): `deq` (false: the
     feed-forward `NNMPCPolicy`), the forward's `qp_solve` and
     `lastqp_solve`, and for the one-round types `deq_iter` = 1 and for the
-    nn ones `deq_type`."""
+    nn ones `deq_type`. The raw flags of the same names are overwritten."""
     mt = args.model_type
     if mt == "deq-mpc-deq":
         args.deq, args.qp_solve, args.lastqp_solve = True, True, False
@@ -389,15 +508,7 @@ def apply_model_type_presets(args):
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    args, rest = build_argparser().parse_known_args(argv)
-    if rest:
-        raise NotImplementedError(f"flags not ported yet: {' '.join(rest)}")
-    # the JAX CLI's defaults of the flags the port does not take, then the
-    # model type's presets
-    vars(args).update(
-        deq_type="deq", dtype="float32", rho_max=None, kernel_width=3, deq_reg=0.1,
-        loss_type="l1", policy_out_type=1, rho_init_max=1e4)
-    return apply_model_type_presets(args)
+    return apply_model_type_presets(build_argparser().parse_args(argv))
 
 
 def streaming_schedule(args: argparse.Namespace) -> int:
@@ -414,20 +525,110 @@ def streaming_schedule(args: argparse.Namespace) -> int:
     return args.deq_iter
 
 
+def check_x_window(env, x_window) -> None:
+    """SystemExit where the env's reset takes no start-window override
+    (`train.py:524-532`), before any data is read."""
+    import inspect
+
+    if x_window is not None and "x_window" not in inspect.signature(env.reset).parameters:
+        raise SystemExit(f"--eval_x_window: {type(env).__name__}.reset takes no x_window "
+                         "override (only FlyingCartpole/RexQuadrotor do)")
+
+
+class MetricsWriter:
+    """`<logdir>/<name>/metrics.jsonl`, one row of scalars per validation, and
+    TensorBoard beside it where `torch.utils.tensorboard` imports
+    (`train.py:418-438`)."""
+
+    def __init__(self, logdir: str, name: str):
+        self.dir = os.path.join(logdir, name)
+        os.makedirs(self.dir, exist_ok=True)
+        self.f = open(os.path.join(self.dir, "metrics.jsonl"), "a")
+        self.tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self.tb = SummaryWriter(self.dir)
+        except Exception:
+            pass
+
+    def write(self, step: int, scalars: Dict[str, float]) -> None:
+        self.f.write(json.dumps({"step": step, **scalars}) + "\n")
+        self.f.flush()
+        if self.tb is not None:
+            for k, v in scalars.items():
+                self.tb.add_scalar(k, v, step)
+
+    def close(self) -> None:
+        self.f.close()
+        if self.tb is not None:
+            self.tb.close()
+
+
+def snapshot_code(logdir: str, name: str) -> str:
+    """Copy the port's package into `<logdir>/<name>/code/deqmpc_tpu_torch`
+    once (`train.py:570-584`); build outputs and caches stay out. A run
+    that makes the copy at the same time as this one does not fail it."""
+    src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dst = os.path.join(logdir, name, "code", "deqmpc_tpu_torch")
+    if not os.path.exists(dst):
+        shutil.copytree(src, dst, ignore=shutil.ignore_patterns("__pycache__", "_build"),
+                        dirs_exist_ok=True)
+    return dst
+
+
+def metric_scalars(out: Dict, losses, losses_end, total_deq_iter: int, deq_iter: int,
+                   val_loss: float, s_per_step: float) -> Dict[str, float]:
+    """The JAX CLI's scalars of a validation row (`train.py:675-697`): the
+    window's mean losses, the last step's per-round losses and solver stats."""
+    scalars = {"losses/loss_avg": float(torch.stack(losses).mean()) / total_deq_iter,
+               "losses/loss_end": float(torch.stack(losses_end).mean()),
+               "val_losses/loss_end": val_loss, "grad_norm": float(out["grad_norm"]),
+               "time/per_step": s_per_step}
+    for k in range(deq_iter):
+        scalars[f"losses/loss{k}"] = float(out["losses_iter"][k])
+        scalars[f"losses_opt/loss_opt{k}"] = float(out["losses_iter_opt"][k])
+        scalars[f"losses_nn/loss_nn{k}"] = float(out["losses_iter_nn"][k])
+    if "losses_x_ests" in out:
+        for k in range(deq_iter):
+            scalars[f"losses_x_ests/loss_x_est{k}"] = float(out["losses_x_ests"][k])
+    if "deq_stats" in out:
+        for k in range(deq_iter):
+            scalars[f"deq_stats/fwd_err{k}"] = float(out["deq_stats"]["fwd_err"][k])
+            scalars[f"deq_stats/fwd_steps{k}"] = float(out["deq_stats"]["fwd_steps"][k])
+    return scalars
+
+
 def main(argv=None) -> Dict:
     args = parse_args(argv)
+    np.random.seed(args.seed)
     device = resolve_device(args.device)
     env = make_env_of(vars(args))
     if args.nq <= 0:
         args.nq = env.nq if env.nq <= env.nx // 2 else env.nx // 2
+    check_x_window(env, args.eval_x_window)
     total_deq_iter = streaming_schedule(args)
     policy = build_policy(vars(args), env, device, obstacles=build_obstacles(env)).init(args.seed)
     optimizer = make_optimizer(policy, args.lr)
+    schedule = make_lr_schedule(args.lr_schedule, args.lr, args.max_train_steps)
+    name = args.name or (f"{args.model_type}_{args.env}_T{args.T}_bsz{args.bsz}"
+                         f"_deq_iter{total_deq_iter}_hdim{args.hdim}")
+    writer = MetricsWriter(args.logdir, name) if args.save else None
+    if args.save:
+        snapshot_code(args.logdir, name)
     if args.load and args.ckpt:
         path = os.path.join(args.models_dir, args.ckpt)
-        state, _ = load_checkpoint(path, device)
+        state, saved = load_checkpoint(path, device)
         policy.model.load_state_dict(state)
-        opt_state = read_port_checkpoint(path)["optimizer"] if is_port_checkpoint(path) else None
+        opt_state = None
+        if not args.eval and is_port_checkpoint(path):
+            opt_state = read_port_checkpoint(path)["optimizer"]
+            # optax's state under one schedule does not load under the other
+            # (`train.py:586-597`)
+            if opt_state is not None and (saved or {}).get("lr_schedule", "constant") \
+                    != args.lr_schedule:
+                print("checkpoint optimizer state incompatible; reinitialized", flush=True)
+                opt_state = None
         if opt_state is not None:
             optimizer.load_state_dict(opt_state)
     if args.eval:
@@ -438,7 +639,7 @@ def main(argv=None) -> Dict:
                             warm_start={"auto": None, "on": True, "off": False}[args.eval_warm_start])
         print(json.dumps(stats), flush=True)
         return stats
-    gt, val_gt = split_episodes(get_gt_data(env, args.teacher))
+    gt, val_gt = split_episodes(get_gt_data(env, args.teacher), args.num_trajs_frac)
     rng = np.random.default_rng(args.seed)
     # windows of an H-step history (the policy sees the current state, or
     # the history variants the whole window); a streaming step reads T + L
@@ -449,18 +650,17 @@ def main(argv=None) -> Dict:
                                                                 horizon, rng)),
                              device)
                    for _ in range(10)]
-    name = args.name or (f"{args.model_type}_{args.env}_T{args.T}_bsz{args.bsz}"
-                         f"_deq_iter{total_deq_iter}_hdim{args.hdim}")
     ckpt_path = os.path.join(args.models_dir, name)
 
     streaming_active = bool(args.streaming and args.streaming_start_iter == 0)
-    pretrain_active = bool(args.pretrain and not streaming_active)
+    pretrain_active = bool(args.pretrain and not streaming_active
+                           and args.start_iter + 1 < PRETRAIN_STEPS)
     loss = make_loss_fn(args.streaming_steps if streaming_active else 0, pretrain_active)
     coeffs = torch.ones((args.deq_iter, 3), dtype=torch.float32, device=device)
     best_val, curve = np.inf, []
     losses, losses_end = [], []
     t_window = time.perf_counter()
-    for i in range(args.max_train_steps):
+    for i in range(args.start_iter + 1, args.max_train_steps):
         if args.streaming and not streaming_active and i > args.streaming_start_iter:
             # the switch to the streaming step (`train.py:630-634`)
             streaming_active, pretrain_active = True, False
@@ -473,7 +673,15 @@ def main(argv=None) -> Dict:
             print(f"[{i}] pretrain done: switching deq -> deqmpc", flush=True)
         batch = preprocess_batch(args.env, env.nx,
                                  sample_trajectory(gt, args.bsz, args.H, horizon, rng))
+        if args.data_noise_type:
+            # drawn from the sampler's generator; the targets stay clean
+            batch = add_data_noise(batch, args.data_noise_type, args.data_noise_std,
+                                   args.data_noise_mean, rng)
+            batch.pop("state_noisy", None)
         batch = to_device(batch, device)
+        if schedule is not None:
+            set_lr(optimizer, schedule(optimizer_updates(optimizer)))
+        lr = optimizer.param_groups[0]["lr"]
         out = train_step(policy, optimizer, batch, loss=loss, coeffs=coeffs)
         losses.append(out["loss"])
         losses_end.append(out["loss_end"])
@@ -491,11 +699,12 @@ def main(argv=None) -> Dict:
                       flush=True)
                 args.grad_coeff = False
         val = validate_policy(policy, val_samples, loss, coeffs)
+        s_per_step = (time.perf_counter() - t_window) / len(losses)
         row = {"step": i,
                "loss_avg": float(torch.stack(losses).mean()) / total_deq_iter,
                "loss_end": float(torch.stack(losses_end).mean()),
                "val_loss_end": val, "grad_norm": float(out["grad_norm"]),
-               "s_per_step": (time.perf_counter() - t_window) / len(losses),
+               "s_per_step": s_per_step, "lr": lr,
                "streaming": streaming_active, "pretrain": pretrain_active}
         if "deq_stats" in out:
             row.update({f"deq_{k}": v.tolist() for k, v in out["deq_stats"].items()})
@@ -503,18 +712,24 @@ def main(argv=None) -> Dict:
             row["coeffs"] = coeffs[:, 0].tolist()
         curve.append(row)
         print(json.dumps(row), flush=True)
+        if writer is not None:
+            writer.write(i, metric_scalars(out, losses, losses_end, total_deq_iter,
+                                           args.deq_iter, val, s_per_step))
         if args.save and val < best_val:
             best_val = val
             save_checkpoint(ckpt_path, policy.model, optimizer, i, vars(args))
         losses, losses_end = [], []
         t_window = time.perf_counter()
+    if writer is not None:
+        writer.close()
     result = {"env": args.env, "model_type": args.model_type, "solver_type": args.solver_type,
               "policy_variant": "mem" if args.addmem else args.policy_variant,
-              "steps": args.max_train_steps, "bsz": args.bsz,
+              "steps": max(args.max_train_steps - args.start_iter - 1, 0), "bsz": args.bsz,
               "hdim": args.hdim, "deq_iter": args.deq_iter, "total_deq_iter": total_deq_iter,
               "streaming_steps": args.streaming_steps if args.streaming else 0,
-              "device": str(device), "curve": curve,
-              "checkpoint": ckpt_path if args.save else None}
+              "lr_schedule": args.lr_schedule, "device": str(device), "curve": curve,
+              "checkpoint": ckpt_path if args.save else None,
+              "logdir": os.path.join(args.logdir, name) if args.save else None}
     print(json.dumps(result), flush=True)
     return result
 

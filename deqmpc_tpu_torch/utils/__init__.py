@@ -1,5 +1,5 @@
-"""Shared helpers of the port: attitude math, the checkpoint reader, and
-the state (un)normalisation of the expert data.
+"""Shared helpers of the port: attitude math, the checkpoint reader, the
+state (un)normalisation of the expert data, and `merge_args`.
 
 `unnormalize_states_*`, `angle_idxs_for_env` and `unwrap_angle_windows`
 are the numpy paths of `deqmpc_tpu/utils/__init__.py:58-118`. The expert
@@ -10,7 +10,20 @@ knot 0, so its targets are continuous.
 """
 from __future__ import annotations
 
+import argparse
+
 import numpy as np
+
+
+def merge_args(args: argparse.Namespace, saved_args: argparse.Namespace) -> argparse.Namespace:
+    """A new namespace of `args` overlaid by `saved_args`: a saved run's
+    args win (`utils/__init__.py:38-47`)."""
+    merged = dict(vars(args))
+    merged.update(vars(saved_args))
+    ns = type(args)()
+    for k, v in merged.items():
+        setattr(ns, k, v)
+    return ns
 
 
 def _shift_angles(x: np.ndarray, idxs) -> np.ndarray:

@@ -233,16 +233,18 @@ def test_train_step_loss_and_gradients_match_jax(case):
 
 
 @pytest.mark.parametrize("ckpt", ["cartpole_sac_deqmpc", "flying_deqmpc_nn",
-                                  "flying_obstacles"])
+                                  "flying_obstacles", "cartpole_deqmpc", "pendulum_sac_deqmpc"])
 def test_checkpoint_first_actions_match_jax_in_f64(ckpt):
     """A committed checkpoint at full width (hdim 256, N 6), loaded by each
-    package's own reader, tick 0 of 4 seeded start states in f64."""
+    package's own reader, tick 0 of 4 seeded start states in f64
+    (`cartpole_deqmpc`: cartpole T 10, the MPC teacher's; `pendulum_sac_deqmpc`:
+    pendulum T 5, the SAC teacher's)."""
     path = REPO / "checkpoints" / ckpt
     state, args = load_checkpoint(path, "cpu")
     env = make_env(args["env"])
     cfg = build_policy(args, env, "cpu", obstacles=train.build_obstacles(env)).cfg
     assert (cfg.hdim, cfg.deq_iter, cfg.rho_max) == (256, 6, 1e5)
-    assert cfg.deq_type == ("deq" if ckpt.startswith("cartpole") else "nn")
+    assert cfg.deq_type == ("nn" if ckpt.startswith("flying") else "deq")
     pol = DEQMPCPolicy(dataclasses.replace(cfg, solver_dtype=torch.float64), env, device="cpu",
                        obstacles=train.build_obstacles(env))
     pol.model.double()

@@ -409,7 +409,8 @@ def test_checkpoint_first_actions_match_jax_in_f64(ckpt):
 def test_train_cli_takes_every_model_type_and_the_ip_solver(argv, tmp_path):
     res = train.main(["--env", "pendulum", "--T", "5", "--hdim", "16", "--bsz", "4",
                       "--max_train_steps", "2", "--val_every", "1", "--device", "cpu",
-                      "--save", "--name", "run", "--models_dir", str(tmp_path), *argv])
+                      "--save", "--name", "run", "--models_dir", str(tmp_path),
+                      "--logdir", str(tmp_path / "logs"), *argv])
     assert len(res["curve"]) == 2 and all(np.isfinite(r["val_loss_end"]) for r in res["curve"])
     assert res["curve"][0]["pretrain"] == ("--pretrain" in argv)
     out = port_eval.main(["--ckpt", str(tmp_path / "run"), "--episodes", "2", "--ep_len", "2",

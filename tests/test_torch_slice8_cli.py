@@ -101,7 +101,8 @@ CLI = {"implicit": ["--grad_type", "implicit"],
 def test_train_cli_takes_each_new_flag(flag, tmp_path):
     res = train.main(["--env", "pendulum", "--deq_iter", "2", "--hdim", "16", "--bsz", "4",
                       "--max_train_steps", "1", "--val_every", "1", "--device", "cpu",
-                      "--save", "--name", flag, "--models_dir", str(tmp_path), *CLI[flag]])
+                      "--save", "--name", flag, "--models_dir", str(tmp_path),
+                      "--logdir", str(tmp_path / "logs"), *CLI[flag]])
     row = res["curve"][0]
     assert np.isfinite(row["loss_end"]) and np.isfinite(row["val_loss_end"])
     assert ("deq_fwd_err" in row) == (flag != "multi")

@@ -528,7 +528,8 @@ def test_streaming_schedule_and_train_cli_on_cpu(tmp_path):
     res = train.main(["--env", "pendulum", "--T", "5", "--deq_iter", "2", "--hdim", "16",
                       "--bsz", "4", "--max_train_steps", "2", "--val_every", "2",
                       "--streaming", "--streaming_steps", "2", "--streaming_start_iter", "0",
-                      "--device", "cpu", "--save", "--name", "s", "--models_dir", str(tmp_path)])
+                      "--device", "cpu", "--save", "--name", "s", "--models_dir", str(tmp_path),
+                      "--logdir", str(tmp_path / "logs")])
     assert res["total_deq_iter"] == 2 + 2 * 2 and res["streaming_steps"] == 2
     assert [r["streaming"] for r in res["curve"]] == [True]
     assert all(np.isfinite(r["loss_avg"]) and np.isfinite(r["val_loss_end"])

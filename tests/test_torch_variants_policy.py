@@ -90,10 +90,12 @@ def test_build_policy_takes_the_variants_and_refuses_what_waits():
     # the slice-8 options build (Qscale and grad_coeff are the env's and the
     # trainer's), a deq_type the JAX CLI does not take is refused
     for key, value in (("fp_type", "multi"), ("fp_type", "broyden"), ("grad_type", "implicit"),
-                       ("grad_type", "last_step_grad"), ("recompute_Qq", True),
-                       ("inner_deq_iters", 3)):
+                       ("grad_type", "last_step_grad"), ("recompute_Qq", True)):
         pol = build_policy({**base, key: value}, env, "cpu")
         assert getattr(pol.cfg, key) == value and getattr(pol.model.cfg, key, value) == value
+    # inner_deq_iters is taken and dropped, as JAX's build_policy drops it
+    pol = build_policy({**base, "fp_type": "multi", "inner_deq_iters": 3}, env, "cpu")
+    assert pol.model.cfg.inner_deq_iters == 4 and not hasattr(pol.cfg, "inner_deq_iters")
     assert build_policy({**base, "compute_dtype": "bf16"}, env,
                         "cpu").model.cfg.compute_dtype == torch.bfloat16
     for key, value in (("Qscale", 2.0), ("grad_coeff", True)):

@@ -111,7 +111,8 @@ CLI = {"mem": ["--addmem"], "delta": ["--policy_variant", "delta"],
 def test_train_cli_runs_each_variant(name, tmp_path):
     res = train.main(["--env", "pendulum", "--deq_iter", "2", "--hdim", "16", "--bsz", "4",
                       "--max_train_steps", "2", "--val_every", "2", "--device", "cpu",
-                      "--save", "--name", name, "--models_dir", str(tmp_path), *CLI[name]])
+                      "--save", "--name", name, "--models_dir", str(tmp_path),
+                      "--logdir", str(tmp_path / "logs"), *CLI[name]])
     assert res["policy_variant"] == VARIANTS[name][0]
     assert len(res["curve"]) == 1 and np.isfinite(res["curve"][0]["loss_end"])
     if name in ("q", "history"):
