@@ -155,10 +155,35 @@ Phases, each announced on a line of its own with the seconds since start:
  34. `rexquad_deqmpc` through `train.main --eval --eval_x_window` (32 x 10
      ticks, the start states inside the window, all warp), then
      `check_param_sensitivity` on a bsz-32 batch: finite losses, the base
-     loss card vs CPU within STEP0_RTOL.
-Phase 3 also holds the kernels at the estimator's shape (128,3,3) and at
-T = 1, (128,1,3) and (32,1,16).
-Phases 1-3 run first, alone. Phases 4-10 and 12-34 then run in the
+     loss card vs CPU within STEP0_RTOL;
+ 35. `expert_mpc_rexquad`: `generate_mpc_expert` on RexQuadrotor at DAgger's
+     settings (horizon 30, 8 AL iterations, noise 0.1), 64 x 10, f32: tick 0
+     of 8 starts card vs CPU in f64 within ACTION_TOL, every solve through the
+     warp kernel at (64,30,16), its first Newton systems against the plain
+     solve, finite episodes with actions inside the box, the first solve's
+     dynamics residual; then the 1-link cartpole's teacher, 64 x 3 at (64,30,5);
+ 36. `expert_capture_cartpole2l`: the 2-link capture teacher at its defaults
+     (horizon 60, 10 AL iterations, noise 0.3), 64 x 5 at (64,60,7), as 35;
+ 37. `expert_analytic`: the pendulum's energy teacher (256 x 200: JAX's gate,
+     70% within 0.3 of upright) and the flying cascade (256 x 240: every kept
+     episode within 0.25), each card vs CPU over 40 ticks; no solve;
+ 38. `golden_traj`: `solve_al` in f64 at (1,60,7) against the committed golden
+     within JAX's test's limits, all warp; `solve_ip` at 2 SQP iterations card
+     vs CPU, at 12 its distance from the golden as JAX's own;
+ 39. `dagger_rexquad`: one DAgger round of config #4 (`collect_policy_states`
+     64 x 8 at (64,5,16), 16 corrective episodes of 5 ticks at (16,30,16),
+     appended to a temporary pickle that starts from the committed dataset);
+ 40. `sac_pendulum`: `SACTrainer` at the CLI's defaults for 2,500 iterations,
+     `generate_expert` 64 x 200, one update card vs CPU (f32); no solve;
+ 41. `obstacles_protocol`: `eval_obstacles.main`, the constrained arm of
+     `flying_obstacles_aware_r5` on the dense field (32 x 8 at (32,5,18) with
+     obstacle rows) and the filter arm of `flying_deqmpc_nn` at T_f 10 (32 x 5
+     at (32,5,18) and (32,10,18)).
+Phase 3 also holds the kernels at the estimator's shape (128,3,3), at
+T = 1, (128,1,3) and (32,1,16), and at slice 10's shapes (SLICE10_SHAPES),
+and each timing row gives the warp kernel's plan (warps per CTA, shared
+memory or device scratch).
+Phases 1-3 run first, alone. Phases 4-10 and 12-41 then run in the
 worker processes of LANES, six at once, each lane's phases in turn
 (each keeps the card idle over 95% of its time, so they share it);
 their times are taken under that sharing. Phase 11 runs last, alone.
@@ -180,17 +205,22 @@ feedback, q}, train_rexquad_implicit, train_rexquad_recompute,
 serve_rexquad_recompute, serve_rexquad_bf16, train_slice8_{broyden,
 broyden_implicit, multi_last_step, multi_bptt, bf16, grad_coeff},
 train_flying_qscale, train_rexquad_double, train_pendulum_cli, profile_step,
-eval_x_window.
+eval_x_window, expert_mpc_rexquad, expert_capture_cartpole2l, expert_analytic,
+golden_traj, dagger_rexquad, sac_pendulum, obstacles_protocol.
 """
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
+import fcntl
 import functools
 import multiprocessing
 import json
+import math
 import os
 import re
 import sys
+import tempfile
 import time
 import types
 
@@ -236,6 +266,7 @@ BENCH_FLEET, BENCH_REPS = 256, 3
 NEW_EPISODES, NEW_TICKS, OBSTACLE_STARTS = 32, 10, 8
 SERVE_SHAPE = (EPISODES, 5, 16)  # the solve's shape on the served path
 TRACE_WAIT_S = 0.05  # the profiler's wait before a traced call and after its sync
+TRACE_LOCK = None  # in a lane: the file whose lock the lanes take in turn to trace
 # the solve's shape in the config-#4 and config-#5 training steps, forward
 # and backward, whose numbers the kernels line reports
 MAIN_SHAPE = (TRAIN_BSZ, 5, 16)
@@ -250,9 +281,14 @@ NEW_SHAPES = [(NEW_EPISODES, 10, 5), (TRAIN_BSZ, 10, 5), (NEW_EPISODES, 5, 18),
 # the estpred estimator's systems (horizon H, the pendulum's n), and T = 1
 MHE_SHAPE = (TRAIN_BSZ, VARIANT_H, 3)
 T1_SHAPES = [(TRAIN_BSZ, 1, 3), (NEW_EPISODES, 1, 16)]
+# slice 10: the MPC teachers at horizon 30 (rexquad, the 1-link cartpole; DAgger's
+# correctives), the capture teacher at 60, the golden AL solve (f64), DAgger's policy
+# rollout, the safety filter at T_f 10 and the obstacle protocol's 512 lanes
+SLICE10_SHAPES = [(64, 30, 16), (64, 30, 5), (64, 60, 7), (1, 60, 7), (64, 5, 16),
+                  (16, 30, 16), (32, 10, 18), (512, 5, 18), (512, 10, 18)]
 KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (64, 20, 18), (4, 200, 18), SERVE_SHAPE,
                  MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40), *STREAM_SHAPES, *NEW_SHAPES,
-                 MHE_SHAPE, *T1_SHAPES]
+                 MHE_SHAPE, *T1_SHAPES, *SLICE10_SHAPES]
 TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
                 (MAIN_SHAPE, torch.float64),  # config #4's step under --dtype double
                 ((1024, 5, 16), torch.float32), ((128, 5, 3), torch.float32),
@@ -260,7 +296,9 @@ TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
                 ((BENCH_FLEET, 5, 16), torch.float32),
                 (PENDULUM_SERVE_SHAPE, torch.float32),
                 *[(shape, torch.float32) for shape in NEW_SHAPES],
-                (MHE_SHAPE, torch.float32), (T1_SHAPES[0], torch.float32)]
+                (MHE_SHAPE, torch.float32), (T1_SHAPES[0], torch.float32),
+                *[(shape, torch.float64 if shape == (1, 60, 7) else torch.float32)
+                  for shape in SLICE10_SHAPES]]
 # H100 SXM, NVIDIA data sheet: HBM rate; f32 outside the tensor cores,
 # f64 through the tensor cores (DMMA), the fastest each type can run
 HBM_BYTES_PER_S = 3.35e12
@@ -348,32 +386,65 @@ def cuda_ms(fn, iters):
 
 def trace(fn, what):
     """One call of `fn` under torch.profiler (device activity only), synced:
-    (the profile, its wall seconds). The profiler runs TRACE_WAIT_S before
-    the call and after its sync: stopped at once, it now and then drops
-    the records of a call's last kernels, a served tick's last solve among
-    them, on an H100 with six processes tracing at once, and a call that
-    starts at once can lose its first kernels
-    (`deqmpc_tpu_torch/training/trace_tail.py` counts both, with and
-    without the waits). A trace that holds no device event at all is a
-    tracing failure, not the program's (on an H100, CUPTI recorded nothing
-    for one profile of two runs, the next ones in the same process
-    everything): it is said and `fn` traced once more."""
-    from torch.profiler import ProfilerActivity, profile
+    (the profile, its wall seconds). `fn` runs once before it, untraced, in
+    the profiler's warm-up step: CUDA's tracer, started cold, loses the
+    records of the first kernels it sees now and then (on an H100 with six
+    processes tracing at once, 69 of 72 traces of a 30,002-kernel call lost
+    1-8 kernels at their head, and none of 72 after a warm-up call:
+    `deqmpc_tpu_torch/training/trace_tail.py`, ways `wait_before_and_after`
+    and `warmup_call`). The profiler runs TRACE_WAIT_S before the traced
+    call and after its sync: stopped at once, it now and then drops the
+    records of a call's last kernels. The lanes trace one at a time
+    (TRACE_LOCK): with six processes tracing at once, now and then one
+    trace in a whole smoke showed 32-39 of the 38-43 launches its served
+    tick or training step made, warm-up call or not (on an H100). A trace
+    that holds no device event at all is a tracing failure, not the
+    program's (on an H100, CUPTI recorded nothing for one profile of two
+    runs, the next ones in the same process everything): it is said and
+    `fn` traced once more."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in (1, 2):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with trace_turn(), profile(activities=[ProfilerActivity.CUDA],
+                                   schedule=schedule(wait=0, warmup=1, active=1,
+                                                     repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             time.sleep(TRACE_WAIT_S)
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             time.sleep(TRACE_WAIT_S)
-        if any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.key_averages()):
+            prof.step()
+        if device_events(prof):
             return prof, wall
         print(f"[chip_smoke]   the profiler recorded no device event in {what} "
               f"(attempt {attempt})", flush=True)
     return prof, wall
+
+
+@contextlib.contextmanager
+def trace_turn():
+    """Hold TRACE_LOCK, where there is one, across the block."""
+    if TRACE_LOCK is None:
+        yield
+        return
+    with open(TRACE_LOCK, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def device_events(prof):
+    """The profile's device events: the kernels, memcpys and memsets (the
+    profiler's step annotation, which spans the step, left out)."""
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
 
 
 def device_ms(fn, key, iters=50):
@@ -424,7 +495,10 @@ def time_solve(bt, tridiag, bsz, T, n, dtype):
         return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
     bnd, by = bound_ms(bsz, T, n, dtype)
+    lib = bt._load_library()
+    warps, smem = bt._plan(lib, "warp", T, n, D.element_size(), bt._smem_optin(lib, 0))
     row = {"shape": [bsz, T, n], "dtype": str(dtype).replace("torch.", ""),
+           "warp_plan": {"warps_per_cta": warps, "shared_memory": smem},
            "plain_ms": cuda_ms(lambda: tridiag.block_tridiag_solve(D, O, b), 20),
            "library_ms": cuda_ms(library, 20), "bound_ms": bnd, "bound_by": by}
     for kernel in ("warp", "block", "block", "warp"):
@@ -499,8 +573,9 @@ def rel_gap(a, b):
 
 
 def profiled(bt, fn, what):
-    """One call of `fn` under torch.profiler (device activity only: host
-    events of ~100k ops take minutes to sum): its wall time, the device's
+    """One call of `fn` under torch.profiler after a warm-up call (`trace`;
+    device activity only: host events of ~100k ops take minutes to sum):
+    its wall time, the device's
     busy time and idle share, and the warp kernel's launches and time.
     Fails unless the profiler recorded device time and every launch of the
     warp kernel that its wrapper counted in the call, and no more."""
@@ -511,11 +586,20 @@ def profiled(bt, fn, what):
         fn()
 
     prof, wall = trace(call, what)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     solve = [e for e in kernels if bt.KERNEL_FUNCTIONS["warp"] in e.key]
     counted = bt.block_tridiag_solve.launches_by_kernel["warp"] - before[0]
     seen = sum(e.count for e in solve)
+    if seen != counted:  # where in the call the trace lost or gained launches
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
+        starts = sorted(e.time_range.start / 1e3 for e in events
+                        if bt.KERNEL_FUNCTIONS["warp"] in e.name)
+        print(f"[chip_smoke]   {what}: the warp kernel's starts {[round(t, 2) for t in starts]} "
+              f"ms into the trace, its device events from "
+              f"{min(e.time_range.start for e in events) / 1e3:.2f} to "
+              f"{max(e.time_range.end for e in events) / 1e3:.2f} ms, the call {wall * 1e3:.1f} "
+              f"ms", flush=True)
     busy_us = sum(dev_us(e) for e in kernels)
     check(kernels and busy_us > 0, f"{what}: the profiler recorded no device time")
     check(seen == counted, f"{what}: the profiler shows {seen} launches of the warp kernel, "
@@ -1060,16 +1144,13 @@ def serve_config(ckpt, bt, tridiag, newton_al, m, args_update=None, ticks=NEW_TI
                 pols[dev] = policy_in(m.build_policy, args, env, dev, dtype, obstacles)
                 pols[dev].model.load_state_dict(state)
             rows = record_obstacle_rows(pols["cuda"], m.obstacle_residuals)
-            newton = pols["cuda"].tracking_mpc.ctrl.newton
-            if dtype == torch.float32:  # keep every Newton system the card solves
-                solve = newton._solve_newton_system
-                newton._solve_newton_system = lambda g, D, O: (
-                    systems.append((g.clone(), D.clone(), O.clone())), solve(g, D, O))[1]
-            t = time.perf_counter()
-            u = {"cuda": first_actions(pols["cuda"], x0.to("cuda", dtype))}
-            torch.cuda.synchronize()
-            out[f"card_tick0_s_{dtype}"] = time.perf_counter() - t
-            newton.__dict__.pop("_solve_newton_system", None)
+            # keep every Newton system the card solves in f32
+            with record_systems(newton_al, limit=None if dtype == torch.float32 else 0) as rec:
+                t = time.perf_counter()
+                u = {"cuda": first_actions(pols["cuda"], x0.to("cuda", dtype))}
+                torch.cuda.synchronize()
+                out[f"card_tick0_s_{dtype}"] = time.perf_counter() - t
+            systems += rec.of_dtype(torch.float32)
             u["cpu"] = first_actions(pols["cpu"], x0.to("cpu", dtype))
             check(bool(torch.isfinite(u["cuda"]).all()), f"{ckpt}: non-finite action ({dtype})")
             out["retries"][str(dtype)] = {dev: {"newton_steps": p.newton_steps,
@@ -1367,13 +1448,11 @@ def phase_serve_rexquad(c):
                 p.model.load_state_dict(state)
                 p.model.to(dtype)
                 pols[dev] = p
-            newton = pols["cuda"].tracking_mpc.ctrl.newton
             # keep every Newton system the card solves in this forward
-            solve, kept = newton._solve_newton_system, systems.setdefault(dtype, [])
-            newton._solve_newton_system = lambda g, D, O: (
-                kept.append((g.clone(), D.clone(), O.clone())), solve(g, D, O))[1]
-            u = {dev: first_actions(pols[dev], x0.to(dev, dtype)) for dev in ("cuda", "cpu")}
-            newton.__dict__.pop("_solve_newton_system", None)
+            with record_systems(newton_al, limit=None) as rec:
+                u = {"cuda": first_actions(pols["cuda"], x0.to("cuda", dtype))}
+            systems[dtype] = rec.of_dtype(dtype)
+            u["cpu"] = first_actions(pols["cpu"], x0.to("cpu", dtype))
             check(bool(torch.isfinite(u["cuda"]).all()), f"non-finite action on the card ({dtype})")
             retries[str(dtype)] = {dev: {"newton_steps": p.newton_steps,
                                          "retries": p.newton_retries}
@@ -1819,8 +1898,6 @@ def phase_serve_variant(name):
     CLI on the card, which writes its port checkpoint; that checkpoint
     served as configs #2-#3b are (`serve_config`), VARIANT_TICKS ticks."""
     def run(c):
-        import tempfile
-
         phase(f"serve: variant {name}", episodes=NEW_EPISODES, ticks=VARIANT_TICKS)
         with tempfile.TemporaryDirectory(prefix="smoke_ckpt_", dir=".") as tmp:
             argv = ["--env", "pendulum", "--T", "5", "--deq_iter", "6", "--hdim", "256",
@@ -1935,25 +2012,49 @@ def phase_train_slice8(name):
     return run
 
 
-class solve_shapes:
-    """Within the block, the (shape of b, dtype) of every block-tridiagonal
-    solve the port's NewtonAL makes, forward and backward, in a set."""
+class record_systems:
+    """Within the block, what every NewtonAL of the port solves, by (shape
+    of the right-hand side, dtype): the first `limit` Newton systems
+    (g, D, O) of each key, cloned (`systems`; every one with `limit` None),
+    and the count of block-tridiagonal solves, forward and backward,
+    retries included (`solves`; its keys are `shapes`)."""
 
-    def __init__(self, newton_al):
-        self.newton_al, self.shapes = newton_al, set()
+    def __init__(self, newton_al, limit=0):
+        self.module, self.limit, self.systems, self.solves = newton_al, limit, {}, {}
+
+    @property
+    def shapes(self):
+        return set(self.solves)
+
+    def solve_counts(self):
+        """`solves` with keys a JSON line can hold."""
+        return {f"{list(k[0])}/{k[1].replace('torch.', '')}": n for k, n in self.solves.items()}
+
+    def of_dtype(self, dtype):
+        return [s for (_, d), kept in self.systems.items() if d == str(dtype) for s in kept]
 
     def __enter__(self):
-        solve = self.solve = self.newton_al.block_tridiag_solve
+        cls, module = self.module.NewtonAL, self.module
+        newton_solve = self.newton_solve = cls._solve_newton_system
+        bt_solve = self.bt_solve = module.block_tridiag_solve
 
-        def record(D, O, b):
-            self.shapes.add((tuple(b.shape), str(b.dtype)))
-            return solve(D, O, b)
+        def record(newton, g, D, O):
+            kept = self.systems.setdefault((tuple(g.shape), str(g.dtype)), [])
+            if self.limit is None or len(kept) < self.limit:
+                kept.append((g.clone(), D.clone(), O.clone()))
+            return newton_solve(newton, g, D, O)
 
-        self.newton_al.block_tridiag_solve = record
-        return self.shapes
+        def count(D, O, b):
+            key = (tuple(b.shape), str(b.dtype))
+            self.solves[key] = self.solves.get(key, 0) + 1
+            return bt_solve(D, O, b)
+
+        cls._solve_newton_system, module.block_tridiag_solve = record, count
+        return self
 
     def __exit__(self, *exc):
-        self.newton_al.block_tridiag_solve = self.solve
+        self.module.NewtonAL._solve_newton_system = self.newton_solve
+        self.module.block_tridiag_solve = self.bt_solve
 
 
 def check_warp_only(counts, what):
@@ -1973,9 +2074,10 @@ def phase_train_rexquad_double(c):
     (TRAIN_BSZ, 5, 16) f64, 6 backward solves a step."""
     args = {**c.args, "dtype": "double", "rho_max": None}
     phase("train: config #4 --dtype double", bsz=TRAIN_BSZ, steps=TRAIN_STEPS)
-    with solve_shapes(c.newton_al) as shapes:
+    with record_systems(c.newton_al) as rec:
         tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, c.state, args, c.env,
                           c.expert_batch(args["env"], c.env, 0, args["T"]), sensitivity=False)
+    shapes = rec.shapes
     tr["solve_shapes"] = sorted(shapes)
     for s_ in tr["steps"]:
         print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
@@ -2016,8 +2118,6 @@ def phase_train_pendulum_cli(c):
     the schedule's at the optimizer's count, the checkpoint reloaded (its
     kernel-width-5 weights into a policy its args build, its optimizer's
     count), every launch through the warp kernel."""
-    import tempfile
-
     from deqmpc_tpu_torch.utils.checkpoint import read_port_checkpoint
 
     train = c.train
@@ -2077,9 +2177,9 @@ def phase_profile_step(c):
 
     phase("profile_step", n_rep=2)
     reset_counts(c.bt)
-    with solve_shapes(c.newton_al) as shapes:
+    with record_systems(c.newton_al) as rec:
         out = profile_step.main(["--n_rep", "2"])
-    counts = launch_counts(c.bt)
+    counts, shapes = launch_counts(c.bt), rec.shapes
     out.update(counts=counts, solve_shapes=sorted(shapes))
     phase("profile_step done", **out)
     times = ("network_fwd_ms", "full_fwd_ms", "loss_overhead_ms", "train_step_ms")
@@ -2156,6 +2256,500 @@ def phase_eval_x_window(c):
     return out, counts
 
 
+# -- slice 10: the teachers, the golden trajectory, DAgger, SAC, the obstacle protocol --------
+
+def check_path_systems(c, systems, shapes, what):
+    """The recorded Newton systems of a path: exactly the expected shapes,
+    each held against the plain solve (`check_served_systems`)."""
+    check(set(systems) == set(shapes), f"{what}: Newton systems at {sorted(systems)}, "
+                                       f"expected {sorted(shapes)}")
+    return {f"{list(k[0])}/{k[1]}": check_served_systems(
+        c.bt, c.tridiag, v, torch.float64 if "float64" in k[1] else torch.float32)
+        for k, v in systems.items()}
+
+
+def episodes_arrays(eps):
+    return (np.stack([[s for s, _ in ep] for ep in eps]),
+            np.stack([[a for _, a in ep] for ep in eps]))
+
+
+def in_box(env, A):
+    return bool((A >= env.action_space.low - 1e-5).all() and (A <= env.action_space.high + 1e-5).all())
+
+
+EXPERT_EPISODES, EXPERT_TICKS = 64, 10  # the MPC teacher at DAgger's settings
+EXPERT_SHAPE = (EXPERT_EPISODES, 30, 16)
+CARTPOLE_TEACHER_SHAPE = (EXPERT_EPISODES, 30, 5)  # the 1-link cartpole at horizon 30
+CAPTURE_TICKS = 5
+CAPTURE_SHAPE = (EXPERT_EPISODES, 60, 7)
+GOLDEN_SHAPE = (1, 60, 7)  # f64
+DAGGER_EPISODES, DAGGER_TICKS, DAGGER_STARTS, DAGGER_EP_LEN = 64, 8, 16, 5
+DAGGER_SHAPE = (DAGGER_EPISODES, 5, 16)
+CORRECTIVE_SHAPE = (DAGGER_STARTS, 30, 16)
+OBSTACLE_EPISODES, OBSTACLE_TICKS, FILTER_TICKS, FILTER_T = 32, 8, 5, 10
+PROTOCOL_SHAPES = [(OBSTACLE_EPISODES, 10, 18), (512, 5, 18), (512, 10, 18)]
+TEACHER_STARTS = 8  # tick 0 card vs CPU
+# the port's IP solve of the golden problem, 12 SQP iterations, f64: its largest
+# distance from the committed golden's states, the same as JAX's own IP solve's
+# (tests/test_torch_expert_gen.py holds the two solves at 1e-8 on the CPU)
+IP_GOLDEN_MAX_DX = 21.317380165
+
+
+def teacher_phase(c, name, env_name, run, starts, shape):
+    """An MPC teacher: tick 0 of TEACHER_STARTS starts card vs CPU in f64
+    (ACTION_TOL), then `run(device)` on the card with the counts set to 0
+    just before: every solve through the warp kernel at `shape`, its
+    first Newton systems held against the plain solve, finite episodes with
+    actions inside the box."""
+    from deqmpc_tpu_torch.data import expert_gen
+
+    env = c.make_env(env_name)
+    u0 = {}
+    for dev in ("cuda", "cpu"):
+        eps = run(dev, ep_len=1, x0=starts[:TEACHER_STARTS], noise_std=0.0,
+                  dtype=torch.float64)
+        u0[dev] = torch.as_tensor(episodes_arrays(eps)[1][:, 0])
+    gap = action_gap(u0["cuda"], u0["cpu"])
+    phase(f"{name}: tick 0 card vs CPU (f64)", gap=gap)
+    reset_counts(c.bt)
+    t = time.perf_counter()
+    with record_systems(c.newton_al, limit=4) as rec:
+        eps = run("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = launch_counts(c.bt)
+    S, A = episodes_arrays(eps) if eps else (np.zeros((0, 1, env.nx)), np.zeros((0, 1, env.nu)))
+    d = expert_gen.final_distances(eps, env, env_name) if eps else np.zeros(0)
+    out = {"wall_s": wall, "counts": counts, "episodes_kept": len(eps),
+           "ticks": S.shape[1], "final_dist_median": float(np.median(d)) if eps else None,
+           "within_0.25": int((d < 0.25).sum()),
+           "tick0_gap_f64": gap, "solves": rec.solve_counts()}
+    out["systems"] = check_path_systems(c, rec.systems, {((shape[0], shape[1], shape[2]),
+                                                           "torch.float32")}, name)
+    phase(f"{name} done", **{k: v for k, v in out.items() if k != "systems"})
+    check(gap_within(gap, torch.float64), f"{name}: tick-0 actions card vs CPU (f64) {gap}")
+    check(len(eps) > 0 and np.isfinite(S).all() and np.isfinite(A).all() and in_box(env, A),
+          f"{name}: {len(eps)} episodes, finite {np.isfinite(S).all()}, box {in_box(env, A)}")
+    check_warp_only(counts, name)
+    return out, counts
+
+
+def dynamics_residual(c, env, x0, horizon, al_iters, u_trim, dtype=torch.float32):
+    """The teacher's first solve on the card from `x0`: max |x_{t+1} - f(x_t, u_t)|
+    over the plan, and |x_0 - x0|."""
+    from deqmpc_tpu_torch.policies import TrackingMPC
+
+    tr = TrackingMPC(env, horizon, al_iter=al_iters, dtype=dtype, max_newton_steps=8,
+                     rho_max=1e8, device="cuda")
+    bsz = x0.shape[0]
+    x_ref = torch.as_tensor(env.targ_pos, dtype=torch.float32, device="cuda").expand(
+        bsz, horizon, env.nx)
+    u_ref = torch.full((bsz, horizon, env.nu), u_trim, dtype=torch.float32, device="cuda")
+    with torch.inference_mode():
+        xs, us, _, _ = tr(x0.float().cuda(), x_ref, u_ref, tr.init_state(bsz), al_iters=al_iters)
+        res = (xs[:, 1:] - env.dynamics(xs[:, :-1], us[:, :-1])).abs().amax(dim=(1, 2))
+        res0 = (xs[:, 0] - x0.float().cuda()).abs().amax(dim=-1)
+    return {"dyn_res_median": float(res.median()), "dyn_res_max": float(res.max()),
+            "x0_res_max": float(res0.max())}
+
+
+def phase_expert_mpc_rexquad(c):
+    """`generate_mpc_expert` on RexQuadrotor at DAgger's settings (horizon 30,
+    8 AL iterations, noise 0.1), EXPERT_EPISODES x EXPERT_TICKS, f32; the
+    first solve's dynamics residual; then the 1-link cartpole's teacher at
+    horizon 30, EXPERT_EPISODES x 3."""
+    from deqmpc_tpu_torch.data import expert_gen
+
+    env = c.make_env("rexquadrotor")
+    starts = env.reset(torch.Generator().manual_seed(0), EXPERT_EPISODES, device="cpu",
+                       dtype=torch.float64)
+    phase("expert: MPC teacher, rexquadrotor", episodes=EXPERT_EPISODES, ticks=EXPERT_TICKS,
+          shape=EXPERT_SHAPE)
+    res = dynamics_residual(c, env, starts, 30, 8, env.u_trim)
+
+    def run(dev, ep_len=EXPERT_TICKS, x0=starts, noise_std=0.1, dtype=torch.float32):
+        return expert_gen.generate_mpc_expert(env, ep_len=ep_len, horizon=30, al_iters=8,
+                                              noise_std=noise_std, env_name="rexquadrotor",
+                                              x0=x0, dtype=dtype, device=dev)
+
+    out, counts = teacher_phase(c, "expert_mpc_rexquad", "rexquadrotor", run, starts,
+                                EXPERT_SHAPE)
+    out["first_solve"] = res
+    phase("expert: the first solve's dynamics residual", **res)
+    check(np.isfinite(res["dyn_res_max"]), f"first solve: {res}")
+
+    cp = c.make_env("cartpole1link")
+    cp_starts = cp.reset(torch.Generator().manual_seed(1), EXPERT_EPISODES, device="cpu",
+                         dtype=torch.float64)
+    reset_counts(c.bt)
+    with record_systems(c.newton_al) as rec:
+        eps = expert_gen.generate_mpc_expert(cp, ep_len=3, horizon=30, al_iters=8,
+                                             noise_std=0.1, env_name="cartpole1link",
+                                             x0=cp_starts, device="cuda")
+    cp_counts, shapes = launch_counts(c.bt), rec.shapes
+    out["cartpole1link"] = {"counts": cp_counts, "episodes_kept": len(eps),
+                            "solve_shapes": sorted(shapes)}
+    phase("expert: MPC teacher, cartpole1link done", **out["cartpole1link"])
+    check(shapes == {(CARTPOLE_TEACHER_SHAPE, "torch.float32")} and len(eps) > 0
+          and in_box(cp, episodes_arrays(eps)[1]), f"cartpole1link teacher: {out['cartpole1link']}")
+    check_warp_only(cp_counts, "the cartpole1link teacher")
+    counts = {"launches": counts["launches"] + cp_counts["launches"],
+              "launches_by_kernel": {k: counts["launches_by_kernel"][k]
+                                     + cp_counts["launches_by_kernel"][k] for k in c.bt.KERNELS}}
+    return out, counts
+
+
+def phase_expert_capture_cartpole2l(c):
+    """The 2-link capture teacher at its defaults (horizon 60, 10 AL
+    iterations, noise 0.3), EXPERT_EPISODES x CAPTURE_TICKS from its own
+    starts; its 0.25 filter reported (`within_0.25`), not applied: 5 ticks
+    do not capture."""
+    from deqmpc_tpu_torch.data import expert_gen
+
+    env = c.make_env("cartpole2link")
+    starts = expert_gen.capture_starts(EXPERT_EPISODES, seed=0)
+    phase("expert: capture teacher, cartpole2link", episodes=EXPERT_EPISODES,
+          ticks=CAPTURE_TICKS, shape=CAPTURE_SHAPE)
+
+    def run(dev, ep_len=CAPTURE_TICKS, x0=starts, noise_std=0.3, dtype=torch.float32):
+        return expert_gen.generate_cartpole2l_capture_expert(
+            env, ep_len=ep_len, x0=x0, noise_std=noise_std, tol=math.inf, dtype=dtype,
+            device=dev)
+
+    out, counts = teacher_phase(c, "expert_capture_cartpole2l", "cartpole2link", run, starts,
+                                CAPTURE_SHAPE)
+    res = dynamics_residual(c, env, torch.as_tensor(starts[:TEACHER_STARTS]), 60, 10, 0.0)
+    out["first_solve"] = res
+    phase("expert: the capture teacher's first solve", **res)
+    return out, counts
+
+
+def phase_expert_analytic(c):
+    """The pendulum's energy teacher (256 x 200, noise 0.05: JAX's gate, at
+    least 70% within 0.3 of upright) and the flying cascade (256 x 240: at
+    least one episode kept, every kept one within 0.25); each card vs CPU on
+    TEACHER_STARTS starts at noise 0 over 40 ticks. No solve."""
+    from deqmpc_tpu_torch.data import expert_gen
+
+    out = {}
+    reset_counts(c.bt)
+    pend, fly = c.make_env("pendulum"), c.make_env("FlyingCartpole")
+    phase("expert: analytic teachers", pendulum=[256, 200], flying=[256, 240])
+    t = time.perf_counter()
+    S, _ = episodes_arrays(expert_gen.generate_pendulum_energy_expert(
+        pend, n_episodes=256, ep_len=200, noise_std=0.05, device="cuda"))
+    err = np.abs(np.mod(S[:, -1, 0] - np.pi + np.pi, 2 * np.pi) - np.pi)
+    out["pendulum"] = {"wall_s": time.perf_counter() - t, "upright_share": float((err < 0.3).mean())}
+    t = time.perf_counter()
+    eps = expert_gen.generate_flying_cartpole_expert(fly, n_episodes=256, ep_len=240,
+                                                     device="cuda")
+    S, A = episodes_arrays(eps) if eps else (np.zeros((0, 1, 14)), np.zeros((0, 1, 4)))
+    ang = np.abs(np.mod(S[:, -1, 6] - np.pi + np.pi, 2 * np.pi) - np.pi)
+    pos = np.linalg.norm(S[:, -1, :3], axis=-1)
+    out["flying"] = {"wall_s": time.perf_counter() - t, "kept": len(eps),
+                     "kept_within": bool(((ang < 0.25) & (pos < 0.25)).all())}
+    for name, env, fn in (("pendulum", pend, expert_gen.generate_pendulum_energy_expert),
+                          ("flying", fly, expert_gen.generate_flying_cartpole_expert)):
+        x0 = env.reset(torch.Generator().manual_seed(2), TEACHER_STARTS, device="cpu",
+                       dtype=torch.float64)
+        kw = dict(ep_len=40, x0=x0, noise_std=0.0)
+        if name == "flying":
+            kw["success_filter"] = False
+        (Sg, Ag), (Sc, Ac) = (episodes_arrays(fn(env, device=d, **kw)) for d in ("cuda", "cpu"))
+        out[name]["card_vs_cpu_max"] = float(max(np.abs(Sg - Sc).max(), np.abs(Ag - Ac).max()))
+    counts = launch_counts(c.bt)
+    phase("expert: analytic teachers done", **out)
+    check(out["pendulum"]["upright_share"] >= 0.7, f"pendulum teacher: {out['pendulum']}")
+    check(out["flying"]["kept"] > 0 and out["flying"]["kept_within"] and in_box(fly, A),
+          f"flying cascade: {out['flying']}")
+    check(all(out[k]["card_vs_cpu_max"] <= ANALYTIC_TOL for k in ("pendulum", "flying")),
+          f"analytic teachers card vs CPU beyond {ANALYTIC_TOL}: {out}")
+    check(counts["launches"] == 0, f"the analytic teachers launched a solve: {counts}")
+    return out, counts
+
+
+# the analytic teachers, card vs CPU in f64 over 40 ticks from the same starts:
+# the same elementwise arithmetic, summed in other orders
+ANALYTIC_TOL = 1e-8
+
+
+def phase_golden_traj(c):
+    """`solve_al` in f64 on the card at GOLDEN_SHAPE against the committed
+    golden, within JAX's test's limits (defect 1e-4, U 2e-3, X 2e-4), all
+    warp, its Newton systems against the plain solve; `solve_ip` on the card
+    at 2 SQP iterations against the CPU's (1e-8), and at 12 against the
+    committed golden: the distance JAX's own IP solve has (IP_GOLDEN_MAX_DX)."""
+    from deqmpc_tpu_torch.data import golden_traj as g
+
+    d = np.load(g.GOLDEN_PATH)
+    phase("golden: solve_al on the card", shape=GOLDEN_SHAPE)
+    reset_counts(c.bt)
+    t = time.perf_counter()
+    with record_systems(c.newton_al, limit=16) as rec:
+        X, U = g.solve_al(device="cuda")
+    out = {"al_wall_s": time.perf_counter() - t, "defect_al": g.rollout_defect(X, U),
+           "al_max_dU": float(np.abs(U - d["U"]).max()),
+           "al_max_dX": float(np.abs(X - d["X"]).max())}
+    counts = launch_counts(c.bt)
+    out["counts"], out["solves"] = counts, rec.solve_counts()
+    out["systems"] = check_path_systems(c, rec.systems, {(GOLDEN_SHAPE, "torch.float64")},
+                                        "golden")
+    t = time.perf_counter()
+    Xi, Ui = g.solve_ip(device="cuda")
+    out["ip_wall_s"] = time.perf_counter() - t
+    out["ip_max_dX_golden"] = float(np.abs(Xi - d["X"]).max())
+    Xg, Ug = g.solve_ip(qp_iter=2, device="cuda")
+    Xc, Uc = g.solve_ip(qp_iter=2, device="cpu")
+    out["ip2_card_vs_cpu"] = float(max(np.abs(Xg - Xc).max(), np.abs(Ug - Uc).max()))
+    phase("golden done", **{k: v for k, v in out.items() if k != "systems"})
+    check(out["defect_al"] < 1e-4 and out["al_max_dU"] < 2e-3 and out["al_max_dX"] < 2e-4,
+          f"solve_al on the card against the golden: {out}")
+    check(abs(out["ip_max_dX_golden"] - IP_GOLDEN_MAX_DX) <= 1e-6 * IP_GOLDEN_MAX_DX,
+          f"solve_ip on the card: max|dX| from the golden {out['ip_max_dX_golden']}, "
+          f"JAX's {IP_GOLDEN_MAX_DX}")
+    check(out["ip2_card_vs_cpu"] <= 1e-8, f"solve_ip(qp_iter=2) card vs CPU: {out}")
+    check_warp_only(counts, "the golden AL solve")
+    return out, counts
+
+
+def phase_dagger_rexquad(c):
+    """One DAgger round of config #4 from `checkpoints/rexquad_deqmpc`:
+    `collect_policy_states` for DAGGER_EPISODES x DAGGER_TICKS (the envelope
+    from the committed RexQuadrotor dataset), DAGGER_STARTS starts chosen,
+    `corrective_episodes` of DAGGER_EP_LEN ticks at horizon 30, appended to
+    a temporary --out that starts from the committed dataset."""
+    from deqmpc_tpu_torch.data import dagger, datagen
+
+    env = c.env
+    args = types.SimpleNamespace(**{**c.args, "teacher": "mpc", "dagger_horizon": 30,
+                                    "al_iters": 8})
+    policy = c.build_policy(vars(args), env, "cuda")
+    policy.model.load_state_dict(c.state)
+    phase("dagger: config #4", collect=[DAGGER_EPISODES, DAGGER_TICKS], starts=DAGGER_STARTS,
+          ep_len=DAGGER_EP_LEN)
+    reset_counts(c.bt)
+    t = time.perf_counter()
+    with record_systems(c.newton_al, limit=4) as rec:
+        states = dagger.collect_policy_states(args, env, policy, n_episodes=DAGGER_EPISODES,
+                                              ep_len=DAGGER_TICKS)
+        t_collect = time.perf_counter() - t
+        idx = np.random.default_rng(0).choice(len(states), size=min(DAGGER_STARTS, len(states)),
+                                              replace=False)
+        starts = states[idx]
+        eps = dagger.corrective_episodes(args, env, starts, ep_len=DAGGER_EP_LEN,
+                                         noise_std=0.1, device="cuda")
+    counts = launch_counts(c.bt)
+    committed = datagen.load_expert_pickle(datagen.expert_data_path(env.spec_id, "mpc"))
+    with tempfile.TemporaryDirectory(prefix="smoke_ckpt_", dir=".") as tmp:
+        written = datagen.write_episodes(f"{tmp}/rexquad.pkl", eps, append=True,
+                                         spec_id=env.spec_id, teacher="mpc")
+        n_file = len(datagen.load_expert_pickle(f"{tmp}/rexquad.pkl"))
+    S, A = episodes_arrays(eps) if eps else (np.zeros((0, 1, 12)), np.zeros((0, 1, 4)))
+    out = {"collect_s": t_collect, "wall_s": time.perf_counter() - t, "counts": counts,
+           "visited_kept": len(states), "starts": len(starts), "episodes": len(eps),
+           "written": n_file, "committed": len(committed), "solves": rec.solve_counts()}
+    out["systems"] = check_path_systems(
+        c, rec.systems, {((DAGGER_EPISODES, 5, 16), "torch.float32"),
+                     ((len(starts), 30, 16), "torch.float32")}, "dagger")
+    phase("dagger done", **{k: v for k, v in out.items() if k != "systems"})
+    check(0 < len(states) <= DAGGER_EPISODES * DAGGER_TICKS // 4 and np.isfinite(states).all(),
+          f"dagger collect: {len(states)} states")
+    check(len(starts) == min(DAGGER_STARTS, len(states)) and 0 < len(eps) <= len(starts)
+          and np.isfinite(S).all() and np.isfinite(A).all() and in_box(env, A)
+          and n_file == len(written) == len(committed) + len(eps),
+          f"dagger correctives: {out}")
+    check_warp_only(counts, "dagger")
+    return out, counts
+
+
+SAC_ITERS, SAC_EPISODES, SAC_EP_LEN = 2500, 64, 200
+# one f32 update of the trained networks, card vs CPU, within SAC_RTOL of each
+# quantity's size, on a batch of the replay that lies SAC_MARGIN clear of every
+# point where the update's gradient jumps (`sac_kink_margins`): a sample whose
+# ReLU input sits within rounding of 0 takes that unit's gradient on one device
+# and not on the other, and Adam turns the difference into a step of up to lr
+# on a weight with a small second moment (on an H100, a batch drawn without
+# this moved the actor loss by 9.7e-4 of its size in one run and 2e-7 in the
+# next). SAC_MARGIN is ten times the f32 rounding of a width-256 layer's
+# inputs relative to their RMS. SAC_POOL transitions are screened, in at most
+# SAC_ROUNDS rounds (a replaced sample moves the updated critic, and with it
+# the margins of the actor loss's forward). The first tr.batch of the pool,
+# unscreened, are compared too, and reported.
+SAC_RTOL, SAC_MARGIN, SAC_POOL, SAC_ROUNDS = 1e-5, 1e-5, 2048, 12
+
+
+def sac_kink_margins(actor, critics, run):
+    """Per sample of the batch, the least distance, over every forward that
+    `run()` makes through `actor` and `critics`, from a point where the
+    gradient jumps: a ReLU's input from 0 (relative to its layer's RMS over
+    the batch), the log-std from its clamp's bounds, q1 from q2 (relative to
+    the larger, or to 1)."""
+    from deqmpc_tpu_torch.training import sac
+
+    margins, hooks = [], []
+
+    def relu_input(_, __, z):
+        z = z.detach()
+        margins.append((z.abs() / z.pow(2).mean().sqrt().clamp_min(1e-30)).amin(dim=-1))
+
+    def log_std(_, __, z):
+        z = z.detach()
+        margins.append(torch.minimum((z - sac.LOG_STD_MIN).abs(),
+                                     (z - sac.LOG_STD_MAX).abs()).amin(dim=-1))
+
+    def q_pair(_, __, q):
+        q1, q2 = (v.detach() for v in q)
+        margins.append((q1 - q2).abs() / torch.maximum(q1.abs(), q2.abs()).clamp_min(1.0))
+
+    hooks = [actor.layers[k].register_forward_hook(relu_input) for k in (0, 1)]
+    hooks.append(actor.layers[3].register_forward_hook(log_std))
+    for critic in critics:
+        hooks += [critic.layers[k].register_forward_hook(relu_input) for k in (0, 1, 3, 4)]
+        hooks.append(critic.register_forward_hook(q_pair))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return torch.stack(margins).amin(dim=0).cpu()
+
+
+def phase_sac_pendulum(c):
+    """`SACTrainer` at the CLI's defaults (128 lanes, hdim 256, batch 256,
+    a 200,000 ring) for SAC_ITERS iterations, past start_steps, then
+    `generate_expert` SAC_EPISODES x SAC_EP_LEN: finite losses, the ring's
+    exact fill, actions inside the box; one `_update` on a fixed batch card
+    vs CPU (f32) within SAC_RTOL, the batch SAC_MARGIN clear of the update's
+    kinks. No solve."""
+    import copy as copy_
+
+    from deqmpc_tpu_torch.training import sac
+
+    env = c.make_env("pendulum")
+    reset_counts(c.bt)
+    tr = sac.SACTrainer(env, "pendulum", device="cuda")
+    phase("sac: pendulum", iterations=SAC_ITERS, n_envs=tr.n_envs, hdim=tr.hdim)
+    st = tr.init(0)
+    t = time.perf_counter()
+    st, info = tr.run(st, SAC_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    eps = tr.generate_expert(st, n_episodes=SAC_EPISODES, ep_len=SAC_EP_LEN, noise_std=0.2)
+    S, A = episodes_arrays(eps)
+    fill = min(SAC_ITERS * tr.n_envs, tr.buffer_size)
+    out = {"wall_s": wall, "s_per_iter": wall / SAC_ITERS,
+           "critic_loss_last": float(info["critic_loss"][-1]),
+           "actor_loss_last": float(info["actor_loss"][-1]), "alpha_last": float(info["alpha"][-1]),
+           "rew_last_100": float(info["rew"][-100:].mean()), "replay": [st.replay.size, st.replay.ptr],
+           "episodes": len(eps)}
+    # one update on a fixed batch: the trained networks, card and CPU
+    rp = st.replay
+    idx = torch.randint(0, rp.size, (SAC_POOL,), generator=torch.Generator().manual_seed(1))
+    pool = tuple(buf[idx.to(buf.device)].cpu() for buf in (rp.obs, rp.act, rp.rew, rp.nobs,
+                                                            rp.done))
+    pool_eps = torch.randn((SAC_POOL, tr.nu), generator=torch.Generator().manual_seed(2))
+
+    def update(dev, rows, margins=False):
+        t_ = sac.SACTrainer(env, "pendulum", buffer_size=8, device=dev)
+        s_ = t_.state_from(copy_.deepcopy(st.actor).to(dev), copy_.deepcopy(st.critic).to(dev),
+                           torch.Generator().manual_seed(0), float(st.log_alpha))
+        s_.target.load_state_dict(st.target.state_dict())
+        for name in ("opt_actor", "opt_critic", "opt_alpha"):  # Adam's moments as trained
+            getattr(s_, name).load_state_dict(copy_.deepcopy(getattr(st, name).state_dict()))
+
+        def go():
+            return t_._update(s_, tuple(v[rows].to(dev) for v in pool), pool_eps[rows].to(dev))
+
+        if margins:
+            return sac_kink_margins(s_.actor, (s_.critic, s_.target), go)
+        s_, inf_ = go()
+        return ({k: float(v) for k, v in inf_.items()},
+                {m: torch.cat([p.detach().cpu().flatten() for p in getattr(s_, m).parameters()])
+                 for m in ("actor", "critic")})
+
+    # the batch: the first tr.batch of the pool clear of the kinks in an update
+    # on the whole pool, then its own update's kinks replaced until none is left
+    clear = (update("cpu", torch.arange(SAC_POOL), margins=True) >= SAC_MARGIN).tolist()
+    spare = [i for i, ok in enumerate(clear) if ok]
+    rows, spare = spare[:tr.batch], spare[tr.batch:]
+    for rounds in range(1, SAC_ROUNDS + 1):
+        margin = update("cpu", torch.tensor(rows), margins=True)
+        near = [i for i, m in zip(rows, margin.tolist()) if m < SAC_MARGIN]
+        if not near or len(near) > len(spare) or rounds == SAC_ROUNDS:
+            break
+        rows = [i for i in rows if i not in near] + spare[:len(near)]
+        spare = spare[len(near):]
+    rows = torch.tensor(rows)
+
+    def gaps(a, b):
+        g = {k: abs(a[0][k] - b[0][k]) / max(abs(b[0][k]), 1e-30) for k in b[0]}
+        g.update({m: float((a[1][m] - b[1][m]).abs().max() / b[1][m].abs().max())
+                  for m in b[1]})
+        return g
+
+    cpu = update("cpu", rows)
+    out["update_card_vs_cpu"] = gap = gaps(update("cuda", rows), cpu)
+    first = torch.arange(tr.batch)
+    out["update_card_vs_cpu_unscreened"] = gaps(update("cuda", first), update("cpu", first))
+    out["update_unscreened_kink_margin_min"] = float(update("cpu", first, margins=True).min())
+    out["update_batch"] = {"rows": len(rows), "clear_in_pool": sum(clear),
+                           "screening_rounds": rounds, "kink_margin_min": float(margin.min())}
+    counts = launch_counts(c.bt)
+    phase("sac: pendulum done", **out)
+    check(all(bool(torch.isfinite(info[k]).all()) for k in info), "sac: non-finite losses")
+    check(st.replay.size == fill and st.replay.ptr == SAC_ITERS * tr.n_envs % tr.buffer_size
+          and st.step == SAC_ITERS, f"sac: the ring {out['replay']}, step {st.step}")
+    check(len(eps) == SAC_EPISODES and np.isfinite(S).all() and in_box(env, A),
+          f"sac: {len(eps)} expert episodes, box {in_box(env, A)}")
+    check(len(rows) == tr.batch and float(margin.min()) >= SAC_MARGIN,
+          f"sac: no batch of the replay {SAC_MARGIN} clear of the update's kinks "
+          f"{out['update_batch']}")
+    check(all(gap[k] <= SAC_RTOL for k in gap), f"sac: one update card vs CPU {gap}")
+    check(counts["launches"] == 0, f"sac launched a solve: {counts}")
+    return out, counts
+
+
+def phase_obstacles_protocol(c):
+    """`eval_obstacles.main` on FlyingCartpole_obstacles_dense: the constrained
+    arm of `flying_obstacles_aware_r5` (`--obstacle_net_input`), OBSTACLE_EPISODES
+    x OBSTACLE_TICKS, its solves at (32,5,18) with obstacle rows; the filter
+    arm of `flying_deqmpc_nn` at T_f FILTER_T, OBSTACLE_EPISODES x FILTER_TICKS,
+    at (32,5,18) and (32,10,18). Each arm all warp, its systems against the
+    plain solve."""
+    from deqmpc_tpu_torch import eval_obstacles
+
+    base = ["--env", "FlyingCartpole_obstacles_dense", "--episodes", str(OBSTACLE_EPISODES)]
+    arms = {"constrained": ["--ckpt_obs", AWARE_CKPT, "--obstacle_net_input", "--arms",
+                            "constrained", "--ep_len", str(OBSTACLE_TICKS)],
+            "filter": ["--ckpt_obs", AWARE_CKPT, "--ckpt_plain", FLYING_CKPT, "--arms", "filter",
+                       "--safety_filter_T", str(FILTER_T), "--ep_len", str(FILTER_TICKS)]}
+    shapes = {"constrained": {((OBSTACLE_EPISODES, 5, 18), "torch.float32")},
+              "filter": {((OBSTACLE_EPISODES, 5, 18), "torch.float32"),
+                         ((OBSTACLE_EPISODES, FILTER_T, 18), "torch.float32")}}
+    out, total = {}, {"launches": 0, "launches_by_kernel": dict.fromkeys(c.bt.KERNELS, 0)}
+    for arm, argv in arms.items():
+        phase(f"obstacles: the {arm} arm", argv=argv)
+        reset_counts(c.bt)
+        t = time.perf_counter()
+        with record_systems(c.newton_al, limit=3) as rec:
+            res = eval_obstacles.main(base + argv)
+        counts = launch_counts(c.bt)
+        r = res["constrained" if arm == "constrained" else "safety_filter"]
+        out[arm] = {**r, "wall_s": time.perf_counter() - t, "counts": counts,
+                    "solves": rec.solve_counts(),
+                    "systems": check_path_systems(c, rec.systems, shapes[arm], arm)}
+        phase(f"obstacles: the {arm} arm done", **{k: v for k, v in out[arm].items()
+                                                   if k != "systems"})
+        check(r["n_episodes"] == OBSTACLE_EPISODES and r["n_nan"] == 0
+              and 0 <= r["collision_rate"] <= 1 and np.isfinite(r["final_dist_mean"]),
+              f"the {arm} arm: {r}")
+        check_warp_only(counts, f"the obstacle protocol's {arm} arm")
+        total["launches"] += counts["launches"]
+        for k in c.bt.KERNELS:
+            total["launches_by_kernel"][k] += counts["launches_by_kernel"][k]
+    return out, total
+
+
 PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rexquad,
           "train_pendulum": phase_train_pendulum, "serve_pendulum": phase_serve_pendulum,
           "serve_streaming": phase_serve_streaming, "train_streaming": phase_train_streaming,
@@ -2187,37 +2781,46 @@ PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rex
           "train_rexquad_double": phase_train_rexquad_double,
           "train_pendulum_cli": phase_train_pendulum_cli,
           "profile_step": phase_profile_step,
-          "eval_x_window": phase_eval_x_window}
+          "eval_x_window": phase_eval_x_window,
+          "expert_mpc_rexquad": phase_expert_mpc_rexquad,
+          "expert_capture_cartpole2l": phase_expert_capture_cartpole2l,
+          "expert_analytic": phase_expert_analytic, "golden_traj": phase_golden_traj,
+          "dagger_rexquad": phase_dagger_rexquad, "sac_pendulum": phase_sac_pendulum,
+          "obstacles_protocol": phase_obstacles_protocol}
 # The phases run in LANES worker processes at once, each lane's in turn: a
 # phase keeps the card idle over 95% of its time (its host dispatches the
 # ops one by one), so three host threads share the card with little
 # interference; the kernel timings and bench_streaming run alone. Lanes are
 # balanced on the phases' times when they ran in one process (PERF.md); the
 # last two (the policy variants and the aware checkpoint) took 280 s and
-# 250 s running side by side.
-LANES = (("serve_flying_obstacles", "train_streaming", "train_rexquad_implicit"),
-         ("serve_flying", "serve_streaming", "train_rexquad", "train_rexquad_recompute",
-          "train_slice8_multi_bptt"),
-         ("serve_cartpole", "train_flying", "train_cartpole", "serve_rexquad", "train_pendulum",
-          "serve_pendulum", "serve_rexquad_recompute", "eval_x_window"),
-         ("serve_flying_diffmpc", "train_diffmpc", "serve_pendulum_diffmpc", "train_ip",
-          "serve_ip", "serve_rexquad_bf16", "train_flying_qscale"),
-         ("serve_flying_aware", "train_variants_mem", "train_variants_delta", "train_variants_q",
-          "serve_variants_mem", "serve_variants_delta", "train_slice8_broyden",
+# 250 s running side by side. Slice 10's phases lead the lanes, the longest
+# (the capture teacher, 140 s in a lane of its own) in the lane that ended first.
+LANES = (("dagger_rexquad", "serve_flying_obstacles", "train_streaming",
+          "train_rexquad_implicit"),
+         ("expert_capture_cartpole2l", "serve_flying", "serve_streaming", "train_rexquad",
+          "train_rexquad_recompute", "train_slice8_multi_bptt"),
+         ("expert_mpc_rexquad", "serve_cartpole", "train_flying", "train_cartpole", "serve_rexquad",
+          "train_pendulum", "serve_pendulum", "serve_rexquad_recompute", "eval_x_window"),
+         ("obstacles_protocol", "serve_flying_diffmpc", "train_diffmpc", "serve_pendulum_diffmpc",
+          "train_ip", "serve_ip", "serve_rexquad_bf16", "train_flying_qscale"),
+         ("sac_pendulum", "serve_flying_aware", "train_variants_mem", "train_variants_delta",
+          "train_variants_q", "serve_variants_mem", "serve_variants_delta", "train_slice8_broyden",
           "train_slice8_broyden_implicit", "train_slice8_bf16", "train_pendulum_cli",
           "profile_step"),
-         ("train_variants_history", "train_variants_estpred", "train_variants_feedback",
-          "train_variants_history_joint", "serve_variants_feedback", "serve_variants_q",
-          "train_slice8_multi_last_step", "train_slice8_grad_coeff", "train_rexquad_double"))
+         ("golden_traj", "expert_analytic", "train_variants_history", "train_variants_estpred",
+          "train_variants_feedback", "train_variants_history_joint", "serve_variants_feedback",
+          "serve_variants_q", "train_slice8_multi_last_step", "train_slice8_grad_coeff",
+          "train_rexquad_double"))
 LANE_THREADS = 2  # torch's CPU threads per lane (the CPU references)
 
 
-def run_lane(names, t0):
+def run_lane(names, t0, trace_lock):
     """A worker process: run the named phases in turn on the card, its
-    clock started at the parent's `t0`. Returns {phase: (its report, the
-    path's launch counts)}; a failed check raises into the parent."""
-    global T0
-    T0 = t0
+    clock started at the parent's `t0`, tracing in turn with the other
+    lanes (`trace_lock`). Returns {phase: (its report, the path's launch
+    counts)}; a failed check raises into the parent."""
+    global T0, TRACE_LOCK
+    T0, TRACE_LOCK = t0, trace_lock
     torch.set_num_threads(LANE_THREADS)
     c = Ctx.make()
     c.bt._load_library()
@@ -2294,15 +2897,17 @@ def main(argv=None) -> int:
     for row in timings:
         print(f"[chip_smoke]   timing {json.dumps(row)}", flush=True)
 
-    # -- 4-10, 12-34. the paths, in LANES worker processes ------------------------
+    # -- 4-10, 12-41. the paths, in LANES worker processes ------------------------
     lanes = [[n for n in lane if selected is None or n in selected] for lane in LANES]
     lanes = [lane for lane in lanes if lane]
     phase("paths", lanes=lanes)
     results, failures = {}, []
     if lanes:
         ctx = multiprocessing.get_context("spawn")
-        with concurrent.futures.ProcessPoolExecutor(len(lanes), mp_context=ctx) as pool:
-            for fut in [pool.submit(run_lane, lane, T0) for lane in lanes]:
+        with tempfile.TemporaryDirectory(prefix="smoke_lock_", dir=".") as tmp, \
+                concurrent.futures.ProcessPoolExecutor(len(lanes), mp_context=ctx) as pool:
+            lock = os.path.join(tmp, "trace.lock")
+            for fut in [pool.submit(run_lane, lane, T0, lock) for lane in lanes]:
                 try:
                     results.update(fut.result())
                 except Exception as e:  # every lane runs to its end; the first failure raises

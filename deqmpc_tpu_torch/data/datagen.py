@@ -10,10 +10,20 @@ an H-step history and a T-step horizon from a `numpy.random.Generator`.
 The pickles were written by numpy 2 and name `numpy._core.multiarray`;
 `load_expert_pickle` maps that module to `numpy.core` under numpy 1, and
 unpickles numpy arrays and plain containers only.
+
+Where the port writes: the port's data CLIs (`data/expert_gen.py`,
+`data/dagger.py`, `training/sac.py`, `data/golden_traj.py`) never write
+into the committed `data/`, which they read only. Their default output
+is under `PORT_DATA_DIR` (`<repo>/data_port`, git-ignored), named as JAX
+names it (`port_data_path`). `write_episodes` writes a pickle by a
+temporary file and a rename; with `append`, a file that does not exist
+yet starts from the committed dataset's episodes, so the result is the
+pickle JAX's `--append` would have written into `data/`.
 """
 from __future__ import annotations
 
 import io
+import os
 import pickle
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -21,6 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 DATA_DIR = Path(__file__).resolve().parents[2] / "data"
+PORT_DATA_DIR = Path(__file__).resolve().parents[2] / "data_port"
 _NUMPY_2 = int(np.__version__.split(".")[0]) >= 2
 # the classes an expert pickle may name: numpy's array reconstruction
 _ALLOWED = {("numpy._core.multiarray", "_reconstruct"), ("numpy._core.multiarray", "scalar"),
@@ -46,6 +57,33 @@ def load_expert_pickle(path) -> List:
 def expert_data_path(spec_id: str, teacher: str = "mpc") -> Path:
     """`data/expert_traj_<teacher>-<spec id>_new.pkl`."""
     return DATA_DIR / f"expert_traj_{teacher}-{spec_id}_new.pkl"
+
+
+def port_data_path(spec_id: str, teacher: str = "mpc") -> Path:
+    """`data_port/expert_traj_<teacher>-<spec id>_new.pkl`: where the port's
+    data CLIs write by default."""
+    return PORT_DATA_DIR / f"expert_traj_{teacher}-{spec_id}_new.pkl"
+
+
+def write_episodes(path, episodes: List, append: bool = False, spec_id: Optional[str] = None,
+                   teacher: str = "mpc") -> List:
+    """Pickle `episodes` to `path` by a temporary file and a rename (a crash
+    mid-dump leaves the old file whole). With `append` the file's episodes
+    come first; where it does not exist yet, those of the committed dataset
+    of (`spec_id`, `teacher`), if there is one. Returns what was written."""
+    path = Path(path)
+    if path.resolve().parent == DATA_DIR.resolve():
+        raise ValueError(f"{path}: the port never writes into the committed data/")
+    if append:
+        base = path if path.exists() or spec_id is None else expert_data_path(spec_id, teacher)
+        if base.exists():
+            episodes = load_expert_pickle(base) + list(episodes)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(episodes, f)
+    os.replace(tmp, path)
+    return episodes
 
 
 def get_gt_data(env, teacher: str = "mpc") -> List:

@@ -36,6 +36,10 @@ class Env:
     dt: float
     spec_id: str = "Env-v0"  # names the env's expert data file
     _max_episode_steps: int = 200
+    # the action that holds the target, in raw action coordinates: nonzero
+    # only where the dynamics add no hover offset themselves (RexQuadrotor
+    # takes raw rotor commands; FlyingCartpole adds u_hover inside)
+    u_trim: float = 0.0
 
     def _const(self, name: str, like: torch.Tensor) -> torch.Tensor:
         cache = self.__dict__.setdefault("_const_cache", {})

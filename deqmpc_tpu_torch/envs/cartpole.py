@@ -151,7 +151,13 @@ class CartpoleEnv(Env):
             return rk4(self._xdot, x, u, self.dt)
         lead = x.shape[:-1]
         step = vmap(lambda xi, ui: rk4(self._xdot, xi, ui, self.dt))
-        return step(x.reshape(-1, self.nx), u.reshape(-1, self.nu)).reshape(*lead, self.nx)
+        # the mass matrix's forward-mode Jacobian under vmap fails inside
+        # inference mode on some PyTorch releases (2.11: "Batching rule not
+        # implemented for aten::_make_dual"), so the step runs outside it, on
+        # normal copies of the inputs (as `Env.dynamics_derivatives` does)
+        with torch.inference_mode(False):
+            xf, uf = x.reshape(-1, self.nx).clone(), u.reshape(-1, self.nu).clone()
+            return step(xf, uf).reshape(*lead, self.nx)
 
     # -- gym API ----------------------------------------------------------------
     def state_clip(self, x):

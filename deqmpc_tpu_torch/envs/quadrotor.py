@@ -41,6 +41,7 @@ class RexQuadrotor(Env):
         ss = np.array([[1.0, 1, 0], [1.0, -1, 0], [-1.0, -1, 0], [-1.0, 1, 0]])
         self.arms = motor_dist * ss / np.linalg.norm(ss, axis=-1, keepdims=True)
         self.u_hover = float((-mass * gravity[2] - bf * 4) / self.act_scale / kf / 4)
+        self.u_trim = self.u_hover  # the raw rotor command that hovers
         self.Qlqr = np.array([10.0] * 6 + [1.0] * 6, dtype=np.float64)
         self.Rlqr = np.full(4, 1e-8, dtype=np.float64)
         self.action_space = Spaces(np.full(4, 11.5), np.full(4, 18.3))
@@ -58,14 +59,17 @@ class RexQuadrotor(Env):
         F = self._const("e_z", p) * thrust
         return F + quatrot(q_inv, self._const("mass_g", p))
 
-    def _moments(self, u):
+    def _moments(self, u, x):
         # slices, not 0-dim elements: torch.func's forward mode promotes the
         # tangent of a 0-dim float32 times a Python float to float64
         thrust_z = self.kf * u + self.bf  # per-rotor thrust along body z
         yaw = self.km * (u[..., 0:1] - u[..., 1:2] + u[..., 2:3] - u[..., 3:4])
         zeros = torch.zeros_like(thrust_z)
-        thrust_vecs = torch.stack([zeros, zeros, thrust_z], dim=-1)  # (..., 4, 3)
-        arms = self._const("arms", u).expand_as(thrust_vecs)
+        # with f32 actions on an f64 state (the MPC teacher) the cross product
+        # runs in f64, as JAX's f64 constants make it
+        thrust_vecs = torch.stack([zeros, zeros, thrust_z], dim=-1).to(
+            torch.promote_types(u.dtype, x.dtype))  # (..., 4, 3)
+        arms = self._const("arms", thrust_vecs).expand_as(thrust_vecs)
         tau = torch.sum(torch.linalg.cross(arms, thrust_vecs, dim=-1), dim=-2)
         return torch.cat([tau[..., :2], tau[..., 2:] + yaw], dim=-1)
 
@@ -74,7 +78,7 @@ class RexQuadrotor(Env):
         p, v, w = x[..., 3:6], x[..., 6:9], x[..., 9:12]
         q = mrp2quat(p)
         F = self._forces(p, u)
-        tau = self._moments(u)
+        tau = self._moments(u, x)
         rdot = quatrot(q, v)
         pdot = w2pdotkinematics_mrp(p, w)
         vdot = F / self.mass - torch.linalg.cross(w, v, dim=-1)
@@ -91,6 +95,10 @@ class RexQuadrotor(Env):
                          * self._const("Qlqr", x) / 2, dim=-1) / 100
         cost = cost + torch.sum(u**2 * self._const("Rlqr", u) / 2, dim=-1) / 10
         return torch.where(cost > 500, -cost, torch.exp(-cost / 2 + 2))
+
+    def is_bad_state(self, x, reward):
+        """Also a reward below -500: the cost's far branch (`quadrotor.py:104-105`)."""
+        return super().is_bad_state(x, reward) | (reward < -500)
 
     def reset(self, generator, bsz, device="cuda", dtype=torch.float32, x_window=None):
         """Uniform start in the Euler-space window; `x_window` overrides the

@@ -288,6 +288,13 @@ class DEQMPCPolicy:
         return PolicyCarry(z=z, x=shift(aux["x"]), u=shift(aux["u"]), solver=sol_state)
 
 
+def f32_observation(policy, x: torch.Tensor) -> torch.Tensor:
+    """The state rounded to f32, as JAX's closed loops cast it before the
+    forward (`x.astype(jnp.float32)`), in the dtype of the policy's
+    parameters (f32, or f64 where a test runs the network in f64)."""
+    return x.float().to(next(policy.model.parameters()).dtype)
+
+
 def deq_stats(auxes) -> Dict:
     """{"deq_stats": {"fwd_err", "fwd_steps"}}, each stacked over the rounds,
     when the rounds' network ran a solver, else {}."""

@@ -9,7 +9,10 @@ value of type 1 that packs (shape, dtype name, raw bytes) with msgpack
 again. `msgpack_restore` below decodes that subset of msgpack (maps,
 arrays, strings, bin, ints, floats, nil, bool and ext type 1);
 `params_from_jax` maps the tree onto the port's `DEQLayer`, or onto the
-trunk of `policies/nn_policy.NNPolicy`.
+trunk of `policies/nn_policy.NNPolicy`. `dense_stack_from_jax` and
+`dense_stack_to_jax` carry a stack of flax `Dense` layers (the SAC actor,
+`Dense_0..3`, and twin critic, `Dense_0..5`, of `training/sac.py`) to and
+from a module whose `layers[i]` is `Dense_i`.
 
 A port checkpoint (`save_checkpoint`) is a `torch.save` zip of
 {"format", "model" (the `DEQLayer` state dict), "optimizer" (the
@@ -170,6 +173,31 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
+def dense_stack_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """{"params": {"Dense_i": {"kernel" (in, out), "bias"}}} as numpy ->
+    the state dict of a module whose `layers[i]` is an `nn.Linear` (out, in)."""
+    params = tree.get("params", tree)
+    state = {}
+    for name, leaf in params.items():
+        if not name.startswith("Dense_"):
+            raise ValueError(f"not a stack of Dense layers: {name}")
+        i = int(name.split("_")[1])
+        state[f"layers.{i}.weight"] = torch.from_numpy(np.array(np.asarray(leaf["kernel"]).T))
+        state[f"layers.{i}.bias"] = torch.from_numpy(np.array(leaf["bias"]))
+    return state
+
+
+def dense_stack_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `dense_stack_from_jax`: flax's tree of numpy arrays."""
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in state.items():
+        _, i, kind = key.split(".")
+        leaf = params.setdefault(f"Dense_{i}", {})
+        arr = v.detach().cpu().numpy()
+        leaf["kernel" if kind == "weight" else "bias"] = arr.T.copy() if kind == "weight" else arr
+    return {"params": {k: params[k] for k in sorted(params, key=lambda n: int(n[6:]))}}
+
+
 def _restricted_loads(data: bytes):
     """Unpickle a checkpoint: plain containers only, no classes."""
 
@@ -214,6 +242,14 @@ def read_port_checkpoint(path) -> Dict[str, Any]:
     if blob.get("format") != PORT_FORMAT:
         raise ValueError(f"{path}: not a {PORT_FORMAT} checkpoint")
     return blob
+
+
+def checkpoint_step(path) -> int:
+    """The training step a checkpoint of either kind was written at."""
+    if is_port_checkpoint(path):
+        return int(read_port_checkpoint(path)["step"])
+    with open(path, "rb") as f:
+        return int(_restricted_loads(f.read()).get("step", 0))
 
 
 def load_checkpoint(path, device="cuda") -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
