@@ -178,12 +178,39 @@ Phases, each announced on a line of its own with the seconds since start:
  41. `obstacles_protocol`: `eval_obstacles.main`, the constrained arm of
      `flying_obstacles_aware_r5` on the dense field (32 x 8 at (32,5,18) with
      obstacle rows) and the filter arm of `flying_deqmpc_nn` at T_f 10 (32 x 5
-     at (32,5,18) and (32,10,18)).
+     at (32,5,18) and (32,10,18));
+ 42. `train_rexquad_two_ranks`: `multihost_worker`'s pendulum step over two
+     processes sharing the card over gloo against one process over nccl, within
+     JAX_SHARD_TOL; config #4's step under `--dtype double` (the network in f64
+     too) from its checkpoint over two gloo processes, 64 samples each of one
+     seeded batch of 128, against the one-process step on all 128: the ranks'
+     new parameters equal bit for bit, the loss, gradient norm and every
+     gradient within the larger of JAX_SHARD_TOL and three times the
+     one-process step's own move under 1e-14 moves (it turns on rounding); the step with
+     the gradient all-reduce skipped must fail that check; one step of one
+     process over nccl within JAX_SHARD_TOL; every step all warp;
+ 43. `native_oracle`: the card's f64 dynamics and Jacobians of the pendulum and
+     the 1- and 2-link cartpoles at 1,024 states against the native C++ oracle
+     (`envs/native_bridge.py`, compiled from `native/src/dynamics.cpp`) within
+     `tests/test_native.py`'s tolerances;
+ 44. `train_flying_obstacles`: config #3b trained from
+     `checkpoints/flying_obstacles` as config #3 (step 0 card vs CPU, the sign
+     flip rejected, 3 steps, all warp, one profiled step), the obstacle rows in
+     the forward and the implicit backward, on 64 x 240 ticks of the port's
+     obstacle-filtered cascade teacher generated on the card (collision-free,
+     through a temporary pickle and the data pipeline); the share of samples
+     with an active obstacle row and the backward's zeroed share printed; its
+     f64 step 0 (which moves by about 1% under 1e-14 moves) held within the
+     larger of STEP0_RTOL and three times the card's own move.
+The feedback variant's phase (23) also takes its f64 step 0 on observations
+moved by 1e-14 for C5_MOVES seeds: the card's own spread beside its gap to
+the CPU (ROADMAP C5).
 Phase 3 also holds the kernels at the estimator's shape (128,3,3), at
-T = 1, (128,1,3) and (32,1,16), and at slice 10's shapes (SLICE10_SHAPES),
+T = 1, (128,1,3) and (32,1,16), at slice 10's shapes (SLICE10_SHAPES) and at
+slice 11's (SLICE11_SHAPES: (8,4,3); a rank's (64,5,16) is timed in f64 too),
 and each timing row gives the warp kernel's plan (warps per CTA, shared
 memory or device scratch).
-Phases 1-3 run first, alone. Phases 4-10 and 12-41 then run in the
+Phases 1-3 run first, alone. Phases 4-10 and 12-44 then run in the
 worker processes of LANES, six at once, each lane's phases in turn
 (each keeps the card idle over 95% of its time, so they share it);
 their times are taken under that sharing. Phase 11 runs last, alone.
@@ -206,7 +233,8 @@ serve_rexquad_recompute, serve_rexquad_bf16, train_slice8_{broyden,
 broyden_implicit, multi_last_step, multi_bptt, bf16, grad_coeff},
 train_flying_qscale, train_rexquad_double, train_pendulum_cli, profile_step,
 eval_x_window, expert_mpc_rexquad, expert_capture_cartpole2l, expert_analytic,
-golden_traj, dagger_rexquad, sac_pendulum, obstacles_protocol.
+golden_traj, dagger_rexquad, sac_pendulum, obstacles_protocol,
+train_rexquad_two_ranks, native_oracle, train_flying_obstacles.
 """
 import argparse
 import concurrent.futures
@@ -219,6 +247,8 @@ import json
 import math
 import os
 import re
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -286,9 +316,14 @@ T1_SHAPES = [(TRAIN_BSZ, 1, 3), (NEW_EPISODES, 1, 16)]
 # rollout, the safety filter at T_f 10 and the obstacle protocol's 512 lanes
 SLICE10_SHAPES = [(64, 30, 16), (64, 30, 5), (64, 60, 7), (1, 60, 7), (64, 5, 16),
                   (16, 30, 16), (32, 10, 18), (512, 5, 18), (512, 10, 18)]
+# slice 11: a rank's slice of the multi-host worker's pendulum step (T 4,
+# f64); a rank's half of config #4's batch is DAgger's (64,5,16), timed here
+# in f64 too
+RANK_SHAPE = (TRAIN_BSZ // 2, 5, 16)
+SLICE11_SHAPES = [(8, 4, 3)]
 KERNEL_SHAPES = [(1024, 5, 16), (128, 5, 3), (64, 20, 18), (4, 200, 18), SERVE_SHAPE,
                  MAIN_SHAPE, PENDULUM_SERVE_SHAPE, (8, 5, 40), *STREAM_SHAPES, *NEW_SHAPES,
-                 MHE_SHAPE, *T1_SHAPES, *SLICE10_SHAPES]
+                 MHE_SHAPE, *T1_SHAPES, *SLICE10_SHAPES, *SLICE11_SHAPES]
 TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
                 (MAIN_SHAPE, torch.float64),  # config #4's step under --dtype double
                 ((1024, 5, 16), torch.float32), ((128, 5, 3), torch.float32),
@@ -298,7 +333,7 @@ TIMED_SHAPES = [(MAIN_SHAPE, torch.float32), (SERVE_SHAPE, torch.float32),
                 *[(shape, torch.float32) for shape in NEW_SHAPES],
                 (MHE_SHAPE, torch.float32), (T1_SHAPES[0], torch.float32),
                 *[(shape, torch.float64 if shape == (1, 60, 7) else torch.float32)
-                  for shape in SLICE10_SHAPES]]
+                  for shape in SLICE10_SHAPES], (RANK_SHAPE, torch.float64)]
 # H100 SXM, NVIDIA data sheet: HBM rate; f32 outside the tensor cores,
 # f64 through the tensor cores (DMMA), the fastest each type can run
 HBM_BYTES_PER_S = 3.35e12
@@ -651,7 +686,8 @@ def policy_in(build_policy, args, env, dev, dtype, obstacles=None):
 
 
 def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np, loss=None,
-                 sensitivity=True, planted=True, faults=(), grad_coeff=False):
+                 sensitivity=True, planted=True, faults=(), grad_coeff=False, obstacles=None,
+                 moves=0):
     """A training step of a checkpoint's configuration (#4, #2 or #3; #5
     with the streaming `loss`; the diff-mpc arm; #1 with the interior-point
     solve, or a policy variant, from a fresh `state`): step 0 on the card
@@ -666,20 +702,24 @@ def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np,
     With `grad_coeff` (`--grad_coeff --val_every 1`), the ratios at the
     starting weights card vs CPU in f64 and, after each of the TRAIN_STEPS
     steps, the ratios on the same batch and the coefficients' EMA, which the
-    next step takes (their solves counted with the step's)."""
+    next step takes (their solves counted with the step's). `obstacles`: the
+    env's field, for a policy with obstacle rows. With `moves`, the card's
+    own spread (`own_spread_f64`): its f64 step 0 once more on observations
+    moved by 1e-14 relative, for each of `moves` seeds (the moves of
+    `tests/test_torch_variants_c5.py`), beside its gap to the CPU."""
     from deqmpc_tpu_torch.training.grad_coeffs import (compute_grad_ratio_coeffs,
                                                        update_coeffs_ema)
 
     loss = loss or train.loss_fn
 
     def fresh(dev, dtype=torch.float32):
-        p = policy_in(build_policy, args, env, dev, dtype)
+        p = policy_in(build_policy, args, env, dev, dtype, obstacles=obstacles)
         p.model.load_state_dict({k: v.to(dev) for k, v in state.items()})
         return p, train.make_optimizer(p)
 
-    def step0(dev, dtype, rel_noise=0.0, plant=None, scales=False):
+    def step0(dev, dtype, rel_noise=0.0, plant=None, scales=False, noise_seed=1):
         b = dict(batch_np)
-        noise = np.random.default_rng(1).normal(size=b["obs"].shape)
+        noise = np.random.default_rng(noise_seed).normal(size=b["obs"].shape)
         b["obs"] = b["obs"].astype(np.float64) * (1 + rel_noise * noise)
         p, o = fresh(dev, dtype)
         undo = plant(p) if plant is not None else None
@@ -717,6 +757,15 @@ def train_config(bt, train, build_policy, newton_al, state, args, env, batch_np,
         out["card_step0_f64_moved_1e-12"] = step0("cuda", torch.float64, 1e-12)
         out["step0_gap_sensitivity_f64_1e-12"] = gaps(out["card_step0_f64_moved_1e-12"],
                                                       out["card_step0_f64"])
+    if moves:  # the card's own spread under 1e-14 moves, beside its gap to the CPU
+        moved = [gaps(step0("cuda", torch.float64, 1e-14, noise_seed=s), out["card_step0_f64"])
+                 for s in range(moves)]
+        spread = {k: max(m[k] for m in moved) for k in ("loss", "grad_norm")}
+        gap = out["step0_gap_card_vs_cpu_f64"]
+        out["own_spread_f64"] = {"moves_1e-14": moved, "spread": spread, "card_vs_cpu": gap,
+                                 "within": {k: gap[k] <= spread[k] for k in spread}}
+        print(f"[chip_smoke]   the card's own f64 spread: {json.dumps(out['own_spread_f64'])}",
+              flush=True)
     if planted:  # a planted fault the f64 check should see
         undo = flip_newton_backward(newton_al)
         try:
@@ -811,14 +860,18 @@ def stats_of(res):
     return {f"deq_{k}": v.cpu().tolist() for k, v in res.get("deq_stats", {}).items()}
 
 
-def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64), backward=None):
+def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64), backward=None,
+                spread_factor=None):
     """The checks of a training phase: finite steps, one implicit backward
     per round of each forward (for a diff-mpc step, the final solve's one;
     for the interior-point path, one qp_layer backward a round and no
     block-tridiagonal solve; `backward` a step where the phase says),
     every solve through the warp kernel, step 0 card vs CPU within
     STEP0_RTOL in `dtypes`, the planted faults (where the phase planted
-    them) rejected, and the profiled step's launches."""
+    them) rejected, and the profiled step's launches. With `spread_factor`
+    (a step that turns on rounding, its `own_spread_f64` measured), the f64
+    step 0 within the larger of STEP0_RTOL and `spread_factor` times the
+    card's own move under 1e-14 moves."""
     mode = tr["mode"]
     ip = mode["solver_type"] == "ip"
     # backward solves a step: one a round with a solve in every round, one
@@ -849,6 +902,8 @@ def check_train(tr, what, forwards=1, dtypes=(torch.float32, torch.float64), bac
         if dtype not in dtypes:
             continue
         for k, lim in STEP0_RTOL[dtype].items():
+            if spread_factor is not None and dtype == torch.float64:
+                lim = max(lim, spread_factor * tr["own_spread_f64"]["spread"][k])
             check(tr[key][k] <= lim,
                   f"{what} step 0 {k} ({dtype}), card vs CPU: relative gap {tr[key][k]} > {lim}")
     planted = tr.get("step0_gap_planted_sign_flip_f64")
@@ -1842,6 +1897,12 @@ def mhe_systems(c, policy, batch_np):
     return out
 
 
+# ROADMAP C5: the feedback variant's f64 step 0 on the card, beside the
+# card's own move under as many 1e-14 moves of the observations as the CPU
+# test made first (4; JAX's 16 are in `tests/test_torch_variants_c5.py`)
+C5_MOVES = 4
+
+
 def phase_train_variant(name):
     """A policy variant trained on config #1 (pendulum, full width, bsz
     TRAIN_BSZ) from a seeded fresh init, as config #4 (`train_config`):
@@ -1859,7 +1920,8 @@ def phase_train_variant(name):
         phase(f"train: variant {name}", bsz=TRAIN_BSZ, steps=TRAIN_STEPS, H=args["H"])
         tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, state,
                           args, env, batch_np, sensitivity=False,
-                          faults=VARIANT_FAULTS.get(name, ()))
+                          faults=VARIANT_FAULTS.get(name, ()),
+                          moves=C5_MOVES if name == "feedback" else 0)
         tr["variant"] = type(c.build_policy(args, env, "cpu")).__name__
         if name == "mem":  # the --addmem alias built what --policy_variant mem builds
             named = c.build_policy({**args, "addmem": False, "policy_variant": "mem"}, env,
@@ -2750,6 +2812,385 @@ def phase_obstacles_protocol(c):
     return out, total
 
 
+# -- slice 11: data parallelism over processes, the native oracle, #3b trained --
+
+TWO_RANKS = 2
+RANK_TIMEOUT_S = 300  # a rank's process-group init and collectives, and its whole run
+# JAX's own sharding and multi-host tolerances (`tests/test_sharding.py`,
+# `tests/test_multihost.py`), relative: the loss, the gradient norm, and (a
+# tensor's largest gap over its largest entry) every gradient
+JAX_SHARD_TOL = {"loss": 2e-5, "grad_norm": 2e-4, "grads": 2e-4}
+# config #4's f64 step turns on rounding: a 1e-14 move of its observations
+# moves its gradients by about 4% of their largest entries and its Newton
+# steps by 2 (on an H100), and so does the other kernel arithmetic of a
+# half batch (the network's proposal moves by 1.4e-5); on the CPU a change of
+# thread count alone moves them by 4.9%. Its two ranks are held to the larger
+# of JAX_SHARD_TOL and SPREAD_FACTOR times the one-process step's own largest
+# move under SPREAD_MOVES 1e-14 moves, measured in the same run (skipping the
+# all-reduce moves them by over 100%); the worker's pendulum step, which does
+# not turn on rounding, is held to JAX_SHARD_TOL, and the CPU tests hold the
+# four sharding cases at 1e-9 (`tests/test_torch_parallel.py`).
+SPREAD_MOVES, SPREAD_FACTOR = 3, 3.0
+RANK_CODE = "import sys, chip_smoke; sys.exit(chip_smoke.rank_main(sys.argv[1]))"
+
+
+def two_rank_step(c, skip_allreduce=False, rel_noise=0.0, noise_seed=0):
+    """Config #4's training step under `--dtype double` (the solver in f64 at
+    rho_max 1e8, and here the network in f64 too) from its checkpoint, on
+    this process's slice of the seeded global batch of TRAIN_BSZ (all of it
+    without a process group), its observations moved by `rel_noise`
+    relative; with `skip_allreduce` the gradients stay local (the planted
+    fault). Returns the loss, the gradient norm, the gradients and new
+    parameters (on the CPU) and the path's counts."""
+    from deqmpc_tpu_torch.parallel import collectives, make_mesh, replicate_local, shard_batch
+
+    mesh = make_mesh()
+    policy = policy_in(c.build_policy, {**c.args, "dtype": "double"}, c.env, "cuda",
+                       torch.float64)
+    policy.model.load_state_dict(c.state)
+    replicate_local(policy.model, mesh)
+    opt = c.train.make_optimizer(policy)
+    batch_np = c.expert_batch(c.args["env"], c.env, 0, c.args["T"])
+    noise = np.random.default_rng(noise_seed).normal(size=batch_np["obs"].shape)
+    batch_np["obs"] = batch_np["obs"].astype(np.float64) * (1 + rel_noise * noise)
+    batch = c.train.to_device(shard_batch(batch_np, mesh), "cuda", torch.float64)
+    good = collectives.average_gradients
+    if skip_allreduce:
+        collectives.average_gradients = lambda params: None
+    torch.cuda.synchronize()
+    before = policy_counts(policy)
+    reset_counts(c.bt)
+    try:
+        t = time.perf_counter()
+        res = c.train.train_step(policy, opt, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+    finally:
+        collectives.average_gradients = good
+    named = dict(policy.model.named_parameters())
+    return {"bsz": int(batch["obs"].shape[0]), "loss": float(res["loss"]),
+            "grad_norm": float(res["grad_norm"]), "step_s": step_s,
+            "grads": {k: p.grad.detach().cpu() for k, p in named.items() if p.grad is not None},
+            "params": {k: p.detach().cpu() for k, p in named.items()},
+            "counts": path_counts(c.bt, policy, before)}
+
+
+def rank_main(spec_json):
+    """One rank of `start_ranks`, in a process of its own: join the group,
+    take config #4's step (and with `plant` the step without the
+    all-reduce), save the results to the spec's `out`."""
+    from deqmpc_tpu_torch.parallel import initialize_multihost
+
+    spec = json.loads(spec_json)
+    torch.cuda.set_device(0)
+    torch.set_num_threads(LANE_THREADS)
+    initialize_multihost(spec["coordinator"], spec["world"], spec["rank"],
+                         backend=spec["backend"], timeout_s=RANK_TIMEOUT_S)
+    try:
+        c = Ctx.make()
+        c.bt._load_library()
+        out = {"step": two_rank_step(c)}
+        if spec["plant"]:
+            out["skip_allreduce"] = two_rank_step(c, skip_allreduce=True)
+        torch.save(out, spec["out"])
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(tmp, name, world, backend, plant=False, worker=False):
+    """`world` processes on cuda:0 over `backend`, started together: ranks of
+    `rank_main` (config #4), or with `worker` of `multihost_worker` (its
+    pendulum step). Returns [(process, log path, result path)]."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    coordinator = f"localhost:{free_port()}"
+    procs = []
+    for r in range(world):
+        out = os.path.join(tmp, f"{name}_r{r}.{'json' if worker else 'pt'}")
+        if worker:
+            cmd = [sys.executable, "-m", "deqmpc_tpu_torch.multihost_worker", "--process_id",
+                   str(r), "--num_processes", str(world), "--coordinator", coordinator,
+                   "--out", out, "--device", "cuda", "--backend", backend,
+                   "--timeout_s", str(RANK_TIMEOUT_S)]
+        else:
+            spec = {"coordinator": coordinator, "world": world, "rank": r, "backend": backend,
+                    "plant": plant, "out": out}
+            cmd = [sys.executable, "-c", RANK_CODE, json.dumps(spec)]
+        log = os.path.join(tmp, f"{name}_r{r}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(cmd, cwd=here, stdout=f, stderr=subprocess.STDOUT),
+                          log, out))
+    return procs
+
+
+def wait_ranks(procs, what):
+    """Each process must exit 0 within RANK_TIMEOUT_S; a rank that fails or
+    hangs fails the smoke. Returns their results in rank order."""
+    for r, (p, log, _) in enumerate(procs):
+        try:
+            rc = p.wait(timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = "a timeout"
+        with open(log) as f:
+            tail = f.read()[-3000:]
+        check(rc == 0, f"{what}: rank {r} ended with {rc}:\n{tail}")
+    results = []
+    for _, _, out in procs:
+        if out.endswith(".json"):
+            with open(out) as f:
+                results.append(json.load(f))
+        else:
+            results.append(torch.load(out, weights_only=False))
+    return results
+
+
+def kill_ranks(procs):
+    for p, _, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def step_gaps(a, ref):
+    """A step's gaps to `ref`: the loss and gradient norm relative, and the
+    worst gradient's largest gap over its tensor's largest entry."""
+    return {"loss": rel_gap(a["loss"], ref["loss"]),
+            "grad_norm": rel_gap(a["grad_norm"], ref["grad_norm"]),
+            "grads": max(float((a["grads"][k] - g).abs().max() / g.abs().max().clamp_min(1e-300))
+                         for k, g in ref["grads"].items())}
+
+
+def ranks_equal(steps):
+    """Whether the ranks' losses, gradient norms and new parameters are
+    equal bit for bit."""
+    first = steps[0]
+    return all(s["loss"] == first["loss"] and s["grad_norm"] == first["grad_norm"]
+               and all(torch.equal(s["params"][k], v) for k, v in first["params"].items())
+               for s in steps[1:])
+
+
+def within(gaps, tol):
+    return all(gaps[k] <= lim for k, lim in tol.items() if k in gaps)
+
+
+def network_batch_invariance(c):
+    """The largest gap of the network's proposal (f64, no solve) of the
+    batch's first half, computed on its own and inside the whole batch: what
+    the ranks' per-sample arithmetic differs by from one process's."""
+    policy = policy_in(c.build_policy, {**c.args, "dtype": "double"}, c.env, "cuda",
+                       torch.float64)
+    policy.model.load_state_dict(c.state)
+    obs = c.train.to_device(c.expert_batch(c.args["env"], c.env, 0, c.args["T"]), "cuda",
+                            torch.float64)["obs"][:, -1]
+    half = obs.shape[0] // TWO_RANKS
+    with torch.inference_mode():
+        whole = policy.forward(obs, qp_solve=False)["trajs"][-1][0][:half]
+        part = policy.forward(obs[:half].clone(), qp_solve=False)["trajs"][-1][0]
+    return float((whole - part).abs().max())
+
+
+def phase_train_rexquad_two_ranks(c):
+    """Data parallelism on the card, all rank processes started together:
+    (1) `multihost_worker`'s pendulum step over TWO_RANKS processes sharing
+    the card over gloo (nccl refuses two ranks on one GPU) against one
+    process over nccl: the ranks equal, the loss and gradient norm within
+    JAX_SHARD_TOL (as `tests/test_multihost.py` holds JAX); (2) config #4's
+    f64 step over TWO_RANKS gloo processes, 64 samples each of the seeded
+    batch of TRAIN_BSZ, against the one-process step on all 128: the ranks'
+    new parameters equal bit for bit, the loss, gradient norm and every
+    gradient within the larger of JAX_SHARD_TOL and SPREAD_FACTOR times the
+    one-process step's own move (SPREAD_MOVES 1e-14 moves of its
+    observations); the same step with the gradient all-reduce skipped must
+    fail that check; one process over nccl (the nccl route starts and
+    all-reduces) within JAX_SHARD_TOL of the one-process step. Every solve
+    of every step through the warp kernel."""
+    phase("train: data parallel", ranks=TWO_RANKS, bsz=TRAIN_BSZ, backend="gloo")
+    with tempfile.TemporaryDirectory(prefix="smoke_ranks_", dir=".") as tmp:
+        groups = {}
+        try:
+            groups["worker_two"] = start_ranks(tmp, "worker_two", TWO_RANKS, "gloo",
+                                               worker=True)
+            groups["worker_one"] = start_ranks(tmp, "worker_one", 1, "nccl", worker=True)
+            groups["config4_two"] = start_ranks(tmp, "config4_two", TWO_RANKS, "gloo",
+                                                plant=True)
+            groups["config4_one"] = start_ranks(tmp, "config4_one", 1, "nccl")
+            # the one-process references, while the ranks run
+            one = two_rank_step(c)
+            moved = [two_rank_step(c, rel_noise=1e-14, noise_seed=s)
+                     for s in range(SPREAD_MOVES)]
+            invariance = network_batch_invariance(c)
+            res = {name: wait_ranks(procs, name) for name, procs in groups.items()}
+        finally:
+            for procs in groups.values():
+                kill_ranks(procs)
+    worker, (worker_one,) = res["worker_two"], res["worker_one"]
+    steps = [r["step"] for r in res["config4_two"]]
+    planted = [r["skip_allreduce"] for r in res["config4_two"]]
+    nccl = res["config4_one"][0]["step"]
+    spread = {k: max(step_gaps(m, one)[k] for m in moved) for k in JAX_SHARD_TOL}
+    tol = {k: max(JAX_SHARD_TOL[k], SPREAD_FACTOR * spread[k]) for k in JAX_SHARD_TOL}
+    out = {"worker": {"ranks": worker, "one_process_nccl": worker_one,
+                      "gap": {k: rel_gap(worker[0][k], worker_one[k])
+                              for k in ("loss", "grad_norm", "new_param_norm")}},
+           "one_process": {k: one[k] for k in ("bsz", "loss", "grad_norm", "step_s")},
+           "ranks": [{k: s[k] for k in ("bsz", "loss", "grad_norm", "step_s", "counts")}
+                     for s in steps],
+           "ranks_bitwise_equal": ranks_equal(steps),
+           "one_process_spread_1e-14": spread, "tol": tol,
+           "gap_two_ranks_vs_one": step_gaps(steps[0], one),
+           "planted_skip_allreduce": {"gap": step_gaps(planted[0], one),
+                                      "ranks_bitwise_equal": ranks_equal(planted)},
+           "nccl_world1": {k: nccl[k] for k in ("bsz", "loss", "grad_norm", "step_s")},
+           "gap_nccl_world1_vs_one": step_gaps(nccl, one),
+           "network_batch_invariance": invariance,
+           "newton_steps": {"one": one["counts"]["newton_steps"],
+                            "moved": [m["counts"]["newton_steps"] for m in moved],
+                            "ranks": [s["counts"]["newton_steps"] for s in steps]}}
+    phase("train: data parallel done", **out)
+    check(all(w["process_count"] == TWO_RANKS for w in worker)
+          and all(worker[0][k] == w[k] for w in worker
+                  for k in ("loss", "grad_norm", "new_param_norm")),
+          f"the worker's ranks differ: {worker}")
+    check(within(out["worker"]["gap"], JAX_SHARD_TOL),
+          f"the worker's two ranks vs one process beyond {JAX_SHARD_TOL}: {out['worker']}")
+    check(all(s["bsz"] == TRAIN_BSZ // TWO_RANKS for s in steps),
+          f"the ranks' slices: {[s['bsz'] for s in steps]}")
+    check(out["ranks_bitwise_equal"], "config #4's two ranks differ")
+    check(within(out["gap_two_ranks_vs_one"], tol),
+          f"config #4's two ranks vs one process beyond {tol}: {out['gap_two_ranks_vs_one']}")
+    bad = out["planted_skip_allreduce"]
+    check(not (bad["ranks_bitwise_equal"] and within(bad["gap"], tol)),
+          f"the check passed a step without the gradient all-reduce: {bad}")
+    check(within(out["gap_nccl_world1_vs_one"], JAX_SHARD_TOL),
+          f"the nccl step vs one process beyond {JAX_SHARD_TOL}: {out['gap_nccl_world1_vs_one']}")
+    for i, s in enumerate(steps + [nccl, one] + moved):
+        check_all_warp(s["counts"], f"the data-parallel phase's step {i}")
+        check(s["counts"]["backward_solves"] == c.args["deq_iter"],
+              f"the data-parallel phase's step {i}: {s['counts']}")
+    return out, one["counts"]
+
+
+NATIVE_STATES = 1024
+# `tests/test_native.py`'s tolerances
+NATIVE_TOL = {"dynamics": dict(rtol=1e-9, atol=1e-10), "jacobians": dict(rtol=1e-8, atol=1e-9)}
+NATIVE_ENVS = (("pendulum1l", "pendulum"), ("cartpole1l", "cartpole1link"),
+               ("cartpole2l", "cartpole2link"))
+
+
+def phase_native_oracle(c):
+    """The card's f64 `dynamics` and `dynamics_derivatives` (the vmap(jacfwd)
+    Jacobians) of the pendulum and the 1- and 2-link cartpoles at
+    NATIVE_STATES seeded states, against the native C++ oracle on the host
+    (`envs/native_bridge.py`, compiled from `native/src/dynamics.cpp` here),
+    within NATIVE_TOL. No block-tridiagonal solve."""
+    from deqmpc_tpu_torch.envs import native_bridge
+
+    phase("native oracle", states=NATIVE_STATES)
+    reset_counts(c.bt)
+    t = time.perf_counter()
+    native_bridge.build_native()
+    out = {"build_s": time.perf_counter() - t, "cases": {}}
+    for package, name in NATIVE_ENVS:
+        env = c.make_env(name)
+        nat = native_bridge.NativeDynamics(package, env.dt)
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(NATIVE_STATES, env.nx)) * 0.5
+        u = rng.normal(size=(NATIVE_STATES, env.nu)) * 0.5
+        xt, ut = (torch.as_tensor(a, dtype=torch.float64, device="cuda") for a in (x, u))
+        t = time.perf_counter()
+        with torch.no_grad():
+            x_next = env.dynamics(xt, ut)
+            _, (Jx, Ju) = env.dynamics_derivatives(xt, ut)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ref_next = nat.dynamics(x, u)
+        _, (Jx_n, Ju_n) = nat.dynamics_derivatives(x, u)
+        host_s = time.perf_counter() - t
+        got = {"dynamics": [(x_next, ref_next)], "jacobians": [(Jx, Jx_n), (Ju, Ju_n)]}
+        case = {"card_s": card_s, "host_s": host_s}
+        for kind, pairs in got.items():
+            case[f"{kind}_max_abs_gap"] = max(float(np.max(np.abs(a.cpu().numpy() - b)))
+                                              for a, b in pairs)
+            for a, b in pairs:
+                np.testing.assert_allclose(a.cpu().numpy(), b, **NATIVE_TOL[kind],
+                                           err_msg=f"{name} {kind}, card vs native")
+        out["cases"][name] = case
+    phase("native oracle done", **out)
+    counts = launch_counts(c.bt)
+    check(counts["launches"] == 0, f"the native oracle phase launched solves: {counts}")
+    return out, counts
+
+
+OBSTACLE_TRAIN_EPISODES, OBSTACLE_TRAIN_TICKS = 64, 240
+OBSTACLE_TRAIN_MIN_KEPT = 8
+
+
+def phase_train_flying_obstacles(c):
+    """Config #3b trained from `checkpoints/flying_obstacles` (40 spheres, the
+    4 nearest per knot as rows, in the forward and the implicit backward),
+    as config #3 (`train_config`, `check_train`), on data the port's
+    obstacle-filtered cascade teacher generates on the card
+    (OBSTACLE_TRAIN_EPISODES x OBSTACLE_TRAIN_TICKS, the finished episodes
+    that never enter a sphere kept), written to a temporary directory and
+    read back through `split_episodes`, `sample_trajectory` and
+    `preprocess_batch`; the share of the batch's samples with an active
+    obstacle row (one card forward) and the backward's zeroed share
+    printed. Its f64 step 0 turns on rounding, so the card's own spread
+    under SPREAD_MOVES 1e-14 moves is measured and the f64 check takes the
+    larger of STEP0_RTOL and SPREAD_FACTOR times it."""
+    from deqmpc_tpu_torch.data import datagen, expert_gen
+
+    state, args = c.load_checkpoint(FLYING_OBS_CKPT, "cuda")
+    env = c.make_env_of(args)
+    obstacles = c.build_obstacles(env)
+    phase("train: config #3b", episodes=OBSTACLE_TRAIN_EPISODES, ticks=OBSTACLE_TRAIN_TICKS,
+          bsz=TRAIN_BSZ, steps=TRAIN_STEPS, spheres=len(env.obstacle_positions))
+    t = time.perf_counter()
+    episodes = expert_gen.generate_flying_cartpole_expert(
+        env, n_episodes=OBSTACLE_TRAIN_EPISODES, ep_len=OBSTACLE_TRAIN_TICKS, seed=0,
+        device="cuda")
+    gen_s = time.perf_counter() - t
+    check(len(episodes) >= OBSTACLE_TRAIN_MIN_KEPT,
+          f"the cascade kept {len(episodes)} of {OBSTACLE_TRAIN_EPISODES} episodes")
+    pos = np.concatenate([np.stack([s for s, _ in ep])[:, :3] for ep in episodes])
+    clear = np.linalg.norm(pos[:, None] - env.obstacle_positions[None], axis=-1).min()
+    check(clear > env.obstacle_radius, f"a kept episode enters a sphere: {clear}")
+    with tempfile.TemporaryDirectory(prefix="smoke_data_", dir=".") as tmp:
+        path = os.path.join(tmp, "expert_traj.pkl")
+        datagen.write_episodes(path, episodes)
+        gt, _ = c.train.split_episodes(datagen.load_expert_pickle(path))
+    batch_np = c.train.preprocess_batch(args["env"], env.nx, c.data.sample_trajectory(
+        gt, TRAIN_BSZ, 1, args["T"], np.random.default_rng(3)))
+    policy = policy_in(c.build_policy, args, env, "cuda", torch.float32, obstacles=obstacles)
+    policy.model.load_state_dict(state)
+    rows = record_obstacle_rows(policy, c.obstacle_residuals)
+    with torch.inference_mode():
+        policy.forward(c.train.to_device(batch_np, "cuda")["obs"][:, -1])
+    tr = train_config(c.bt, c.train, c.build_policy, c.newton_al, state, args, env, batch_np,
+                      sensitivity=False, obstacles=obstacles, moves=SPREAD_MOVES)
+    tr["data"] = {"kept": len(episodes), "of": OBSTACLE_TRAIN_EPISODES, "gen_s": gen_s,
+                  "train_states": int(len(gt["state"])), "clearance_min": float(clear)}
+    tr["obstacle_rows_active_share"] = active_share(rows)
+    tr["ncon"] = policy.tracking_mpc.ctrl.ncon
+    for s_ in tr["steps"]:
+        print(f"[chip_smoke]   step {json.dumps(s_)}", flush=True)
+    phase("train: config #3b done", **{k: v for k, v in tr.items() if k != "steps"})
+    check(tr["ncon"] > env.nx * args["T"] + 2 * env.nu * args["T"],
+          f"config #3b's solver has no obstacle rows: ncon {tr['ncon']}")
+    # its f64 loss turns on rounding: a 1e-14 move of the observations moves
+    # it by 0.74-0.99% on the CPU (four moves), the card's gap to the CPU
+    # 0.35% (an H100): held by the card's own spread
+    check_train(tr, "config-#3b training", spread_factor=SPREAD_FACTOR)
+    return tr, tr["counts"]
+
+
 PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rexquad,
           "train_pendulum": phase_train_pendulum, "serve_pendulum": phase_serve_pendulum,
           "serve_streaming": phase_serve_streaming, "train_streaming": phase_train_streaming,
@@ -2786,7 +3227,10 @@ PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rex
           "expert_capture_cartpole2l": phase_expert_capture_cartpole2l,
           "expert_analytic": phase_expert_analytic, "golden_traj": phase_golden_traj,
           "dagger_rexquad": phase_dagger_rexquad, "sac_pendulum": phase_sac_pendulum,
-          "obstacles_protocol": phase_obstacles_protocol}
+          "obstacles_protocol": phase_obstacles_protocol,
+          "train_rexquad_two_ranks": phase_train_rexquad_two_ranks,
+          "native_oracle": phase_native_oracle,
+          "train_flying_obstacles": phase_train_flying_obstacles}
 # The phases run in LANES worker processes at once, each lane's in turn: a
 # phase keeps the card idle over 95% of its time (its host dispatches the
 # ops one by one), so three host threads share the card with little
@@ -2794,19 +3238,22 @@ PHASES = {"serve_rexquad": phase_serve_rexquad, "train_rexquad": phase_train_rex
 # balanced on the phases' times when they ran in one process (PERF.md); the
 # last two (the policy variants and the aware checkpoint) took 280 s and
 # 250 s running side by side. Slice 10's phases lead the lanes, the longest
-# (the capture teacher, 140 s in a lane of its own) in the lane that ended first.
+# (the capture teacher, 140 s in a lane of its own) in the lane that ended first;
+# slice 11's close the three lanes that ended first in the last whole runs.
 LANES = (("dagger_rexquad", "serve_flying_obstacles", "train_streaming",
           "train_rexquad_implicit"),
          ("expert_capture_cartpole2l", "serve_flying", "serve_streaming", "train_rexquad",
           "train_rexquad_recompute", "train_slice8_multi_bptt"),
          ("expert_mpc_rexquad", "serve_cartpole", "train_flying", "train_cartpole", "serve_rexquad",
-          "train_pendulum", "serve_pendulum", "serve_rexquad_recompute", "eval_x_window"),
+          "train_pendulum", "serve_pendulum", "serve_rexquad_recompute", "eval_x_window",
+          "train_rexquad_two_ranks"),
          ("obstacles_protocol", "serve_flying_diffmpc", "train_diffmpc", "serve_pendulum_diffmpc",
-          "train_ip", "serve_ip", "serve_rexquad_bf16", "train_flying_qscale"),
+          "train_ip", "serve_ip", "serve_rexquad_bf16", "train_flying_qscale",
+          "train_flying_obstacles"),
          ("sac_pendulum", "serve_flying_aware", "train_variants_mem", "train_variants_delta",
           "train_variants_q", "serve_variants_mem", "serve_variants_delta", "train_slice8_broyden",
           "train_slice8_broyden_implicit", "train_slice8_bf16", "train_pendulum_cli",
-          "profile_step"),
+          "profile_step", "native_oracle"),
          ("golden_traj", "expert_analytic", "train_variants_history", "train_variants_estpred",
           "train_variants_feedback", "train_variants_history_joint", "serve_variants_feedback",
           "serve_variants_q", "train_slice8_multi_last_step", "train_slice8_grad_coeff",
@@ -2897,7 +3344,7 @@ def main(argv=None) -> int:
     for row in timings:
         print(f"[chip_smoke]   timing {json.dumps(row)}", flush=True)
 
-    # -- 4-10, 12-41. the paths, in LANES worker processes ------------------------
+    # -- 4-10, 12-44. the paths, in LANES worker processes ------------------------
     lanes = [[n for n in lane if selected is None or n in selected] for lane in LANES]
     lanes = [lane for lane in lanes if lane]
     phase("paths", lanes=lanes)

@@ -16,14 +16,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-
-class Spaces:
-    """Minimal gym-style box space (copy of `deqmpc_tpu.utils.Spaces`)."""
-
-    def __init__(self, low, high):
-        self.low = np.asarray(low, dtype=np.float32)
-        self.high = np.asarray(high, dtype=np.float32)
-        self.shape = self.low.shape
+from ..utils import Spaces  # noqa: F401  (the envs' box spaces)
 
 
 class Env:

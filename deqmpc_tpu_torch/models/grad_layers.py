@@ -20,6 +20,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..parallel import collectives
+
 
 class _GradNorm(torch.autograd.Function):
     @staticmethod
@@ -29,7 +31,7 @@ class _GradNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         gf = g.reshape(-1, g.shape[-1])
-        ch = gf.abs().mean(dim=0)                    # per-channel abs-mean
+        ch = collectives.row_mean(gf.abs())          # per-channel abs-mean, whole batch
         scale = ch.mean() / (ch + 1e-12)
         return (gf * scale[None]).reshape(g.shape)
 
@@ -74,10 +76,12 @@ def update_scales(scales, trajs: Sequence, gt_out, init_states, gamma: float = 0
     initial state. Scale 0 tracks the median |gt - init|, scale i+1 the
     median error of round i; the rest keep their values."""
     n = scales.shape[0]
-    new = [scales[0] * gamma + (1 - gamma) * _median((gt_out[:, 1:] - init_states[:, 1:]).abs())]
+    gather = collectives.gather_batch  # the medians are over the whole batch
+    new = [scales[0] * gamma
+           + (1 - gamma) * _median(gather((gt_out[:, 1:] - init_states[:, 1:]).abs()))]
     for i, traj in enumerate(list(trajs)[:-1]):
         if i >= n - 1:
             break
-        err = _median((traj[:, 1:] - gt_out[:, 1:]).abs())
+        err = _median(gather((traj[:, 1:] - gt_out[:, 1:]).abs()))
         new.append(scales[i + 1] * gamma + (1 - gamma) * err)
     return torch.cat([torch.stack(new), scales[len(new):]], dim=0)

@@ -97,7 +97,8 @@ def compute_loss_deqmpc(policy, gt_states, gt_actions, gt_mask, policy_out,
         residuals.append(res)
     losses = torch.stack(losses, dim=1)            # (bsz, n_iter)
     residuals = torch.stack(residuals, dim=1)      # (bsz, n_iter[+1])
-    # computed for logging, not applied (as in the JAX package)
+    # computed for logging, not applied (as in the JAX package); over
+    # processes it stays each process's own (nothing reads it)
     ex_weights = residuals.mean(dim=1, keepdim=True)
     ex_weights = ex_weights / (ex_weights.mean() + 1e-12)
     loss_end, _ = cost(trajs[-1][1], trajs[-1][2], n_iter - 1)

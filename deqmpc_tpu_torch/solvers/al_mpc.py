@@ -53,6 +53,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from .. import resolve_device
+from ..parallel import collectives
 from .al_core import ObstacleSet, compute_cost, full_residuals, num_constraints
 from .newton_al import NewtonAL
 from .types import ALState, LinDx, NewtonALConfig, QuadCost
@@ -232,7 +233,7 @@ class ALMPC:
                 rho = torch.where(stopped, rho, rho_next)
                 # the exit tests the uncapped update (`al_mpc.py:286-296`):
                 # the capped rho never exceeds rho_max
-                stopped = stopped | (torch.amax(rho_uncapped) > self.rho_max)
+                stopped = stopped | (collectives.amax(rho_uncapped) > self.rho_max)
             else:
                 lam, rho = lam_next, rho_next
             for h, v in zip(hist, (compute_cost(xu_sg, Q, q), lam, rho)):
@@ -298,8 +299,8 @@ class ALMPC:
                                                             obstacles)
             lam = torch.where(stopped, lam, lam_next)
             rho = torch.where(stopped, rho, torch.clamp(rho_uncapped, max=self.rho_max))
-            cur_res = torch.linalg.vector_norm(res_c)
-            stopped = stopped | (cur_res >= prev_res) | (torch.amax(rho) >= self.rho_max)
+            cur_res = collectives.global_norm(res_c)
+            stopped = stopped | (cur_res >= prev_res) | (collectives.amax(rho) >= self.rho_max)
             prev_res = torch.minimum(prev_res, cur_res)
         return self._result(xu, lam, rho, stopped.expand(x0.shape[0]))
 

@@ -42,6 +42,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..ops.block_tridiag import block_tridiag_solve
+from ..parallel import collectives
 from .al_core import ObstacleSet, full_residuals, merit_function, merit_grad_blocks
 from .types import NewtonALConfig
 
@@ -102,12 +103,12 @@ class NewtonAL:
                               self.u_lower, self.u_upper, obs, self.cfg.state_estimator)
 
     def _dyn_res_norm(self, xu, x0, obs):
-        """Norm of the clamped residuals over the whole batch: the exit
-        rule is global, as in the JAX package."""
+        """Norm of the clamped residuals over the whole batch (every
+        process's shard): the exit rule is global, as in the JAX package."""
         nx = self.cfg.nx
         _, res_c = full_residuals(self.dyn, xu[..., :nx], xu[..., nx:], x0,
                                   self.u_lower, self.u_upper, obs, self.cfg.state_estimator)
-        return torch.linalg.vector_norm(res_c)
+        return collectives.global_norm(res_c)
 
     def _assemble(self, xu, Q, q, x0, lam, rho, obs):
         nx = self.cfg.nx
@@ -120,12 +121,18 @@ class NewtonAL:
                                  self.u_upper, dyn_eq_res=torch.cat([defects, last], dim=1),
                                  obs=obs, state_estimator=self.cfg.state_estimator)
 
+    @staticmethod
+    def _all_finite(upd) -> bool:
+        """Whether the update is finite on every sample of the whole batch
+        (every process's shard): one host read."""
+        return collectives.all_true(torch.isfinite(upd).all())
+
     def _solve_newton_system(self, g, D, O):
         """Solve H x = -g; retry once with a jittered diagonal when the
         result has a non-finite entry anywhere in the batch."""
         O, g = O.contiguous(), g.contiguous()
         upd = -block_tridiag_solve(D.contiguous(), O, g)
-        if bool(torch.isfinite(upd).all()):
+        if self._all_finite(upd):
             return upd
         self.retries += 1
         scale = torch.clamp(torch.amax(torch.abs(D), dim=(-3, -2, -1), keepdim=True),
@@ -158,7 +165,7 @@ class NewtonAL:
         improved = best_merit < merit_now
         xu_new = torch.where(improved[:, None, None], cands[best, bidx], xu)
         new_merit = torch.where(improved, best_merit, merit_now)
-        return xu_new, new_merit, torch.mean(steps[best])
+        return xu_new, new_merit, collectives.batch_mean(steps[best])
 
     # -- forward ----------------------------------------------------------------
     def __call__(self, xu, x0, lam, rho, Q, q, obs: Optional[ObstacleSet] = None):

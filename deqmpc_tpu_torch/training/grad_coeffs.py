@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel import collectives
 from ..policies.losses import compute_decomposed_losses
 
 
@@ -57,16 +58,21 @@ def compute_grad_ratio_coeffs(policy, batch, qp_solve: bool = True,
     for j, (lo_j, ln_j) in enumerate(losses):
         grads = torch.autograd.grad(lo_j + policy.deq_reg * ln_j, params,
                                     retain_graph=j < len(losses) - 1, allow_unused=True)
-        norms.append(torch.sqrt(sum(torch.sum(g * g) for g in grads if g is not None)
+        # the whole batch's gradient: the mean of the processes' (without a
+        # process group, as it is)
+        grads = [g for g in grads if g is not None]
+        collectives.average_(grads)
+        norms.append(torch.sqrt(sum(torch.sum(g * g) for g in grads)
                                 + torch.zeros((), dtype=lo_j.dtype, device=lo_j.device)))
     grads = torch.stack(norms)
-    lo, ln = (torch.stack(x) for x in zip(*losses))
+    lo, ln = (torch.stack(x).detach() for x in zip(*losses))
+    collectives.average_([lo, ln])
     has_signal = grads > eps
     g_ref = grads[torch.argmax(has_signal.to(torch.int8))]
     ratios = torch.where(has_signal, g_ref / torch.clamp(grads, min=eps),
                          torch.ones_like(grads))
     ratios = torch.where(ratios > 1e6, torch.ones_like(ratios), ratios)
-    return ratios.detach(), lo.detach(), ln.detach()
+    return ratios.detach(), lo, ln
 
 
 def update_coeffs_ema(coeffs, ratios, gamma: float = 0.9):

@@ -123,6 +123,7 @@ from .. import resolve_device
 from .. import utils
 from ..data import add_data_noise, get_gt_data, merge_gt_data, sample_trajectory
 from ..envs import make_env_of
+from ..parallel import collectives
 from ..models.grad_layers import update_scales
 from ..policies import build_policy, compute_loss_deqmpc, compute_loss_deqmpc_hist
 from ..policies.deqmpc_policy import POLICY_VARIANTS
@@ -341,6 +342,9 @@ def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
     d["loss"].backward()
     sync()
     t2 = time.perf_counter()
+    # over processes: the loss is a batch mean over equal shards, so the
+    # mean of the local gradients is the global one (nothing without a group)
+    collectives.average_gradients(policy.model.parameters())
     gnorm = clip_by_global_norm_(list(policy.model.parameters()))
     optimizer.step()
     if policy.is_delta and "opt_states" in d:
@@ -352,12 +356,15 @@ def train_step(policy, optimizer, batch: Dict[str, torch.Tensor],
     if timings is not None:
         timings.update(forward_s=t1 - t0, backward_s=t2 - t1,
                        optimizer_s=time.perf_counter() - t2)
-    out = {"loss": d["loss"].detach(), "loss_end": d["loss_end"].detach(), "grad_norm": gnorm}
-    for key in ("losses_iter", "losses_iter_opt", "losses_iter_nn", "losses_x_ests"):
-        if key in d:
-            out[key] = d[key].detach()
+    # the logged batch means, over every process's shard
+    means = {k: d[k].detach() for k in ("loss", "loss_end", "losses_iter", "losses_iter_opt",
+                                         "losses_iter_nn", "losses_x_ests") if k in d}
+    means.update({f"deq_stats.{k}": v for k, v in d.get("deq_stats", {}).items()})
+    means = collectives.average_scalars(means)
+    out = {"loss": means.pop("loss"), "loss_end": means.pop("loss_end"), "grad_norm": gnorm}
+    out.update({k: v for k, v in means.items() if not k.startswith("deq_stats.")})
     if "deq_stats" in d:
-        out["deq_stats"] = d["deq_stats"]
+        out["deq_stats"] = {k: means[f"deq_stats.{k}"] for k in d["deq_stats"]}
     return out
 
 

@@ -1,5 +1,5 @@
 """Shared helpers of the port: attitude math, the checkpoint reader, the
-state (un)normalisation of the expert data, and `merge_args`.
+state (un)normalisation of the expert data, `merge_args` and `Spaces`.
 
 `unnormalize_states_*`, `angle_idxs_for_env` and `unwrap_angle_windows`
 are the numpy paths of `deqmpc_tpu/utils/__init__.py:58-118`. The expert
@@ -11,8 +11,33 @@ knot 0, so its targets are continuous.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass(init=False)
+class Spaces:
+    """A gym-style box (`utils/__init__.py:19-34`): float32 `low` and `high`
+    broadcast to `shape`, which defaults to `low`'s shape; an unbounded
+    side is None. The arrays are copies (torch takes no read-only array)."""
+
+    low: np.ndarray
+    high: np.ndarray
+    shape: tuple
+
+    def __init__(self, low=None, high=None, shape=None):
+        if shape is None and low is not None:
+            shape = np.shape(low)
+        self.shape = tuple(shape) if shape is not None else ()
+        self.low = None if low is None else self._box(low)
+        self.high = None if high is None else self._box(high)
+
+    def _box(self, v) -> np.ndarray:
+        return np.array(np.broadcast_to(np.asarray(v, dtype=np.float32), self.shape))
+
+
+Spaces_np = Spaces  # the reference's numpy name
 
 
 def merge_args(args: argparse.Namespace, saved_args: argparse.Namespace) -> argparse.Namespace:

@@ -157,7 +157,12 @@ def test_port_imports_no_jax():
     assert {"deqmpc_tpu_torch.ops.block_tridiag", "deqmpc_tpu_torch.solvers.pdipm",
             "deqmpc_tpu_torch.solvers.ip_mpc", "deqmpc_tpu_torch.policies.nn_policy",
             "deqmpc_tpu_torch.models.deq_layer_variants", "deqmpc_tpu_torch.models.grad_layers",
-            "deqmpc_tpu_torch.policies.policy_variants"} <= set(modules)
+            "deqmpc_tpu_torch.policies.policy_variants", "deqmpc_tpu_torch.parallel",
+            "deqmpc_tpu_torch.parallel.mesh", "deqmpc_tpu_torch.parallel.collectives",
+            "deqmpc_tpu_torch.multihost_worker", "deqmpc_tpu_torch.envs.native_bridge",
+            "deqmpc_tpu_torch.warmstart_obstacle_aware", "deqmpc_tpu_torch.export_ckpt",
+            "deqmpc_tpu_torch.training.perf_al_phases",
+            "deqmpc_tpu_torch.training.perf_ab"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"

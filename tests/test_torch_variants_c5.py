@@ -12,10 +12,15 @@ the same weights and batch, and on the batch's observations moved by
 and of the gradient's global norm beside the card's gap. The port's CPU
 step at the batch must lie within JAX's spread of JAX's step, or within
 1e-9. Where the card's gap is within 10x JAX's spread (SETTLED), the step
-turns on rounding in JAX as on the card, and the test holds it so; the
-other pair, feedback's gradient norm (2.58e-3 on the card against JAX's
-7.2e-6, measured), is ROADMAP C5's filed fault. Slow: JAX compiles the
-full-width step for minutes.
+turns on rounding in JAX as on the card, and the test holds it so. The
+other pair, feedback's gradient norm (2.58e-3 on the card), lies outside:
+JAX's 16 moves reach 1.1e-5 (their gradient norms fall on three branches,
+6.4e-6, 7.2e-6 and 1.1e-5 from JAX's step). It is settled by the card's own
+spread (ROADMAP C5): the same f64 step on the card under four 1e-14 moves
+(`chip_smoke.py`, the feedback variant's phase; an H100) moves its
+gradient norm by up to 4.7e-3 and its loss by up to 3.7e-4 (CARD_SPREAD),
+more than its gaps to the CPU. Slow: JAX compiles the full-width step for
+minutes (about 9 min for feedback's 17 steps).
 """
 import types
 
@@ -41,9 +46,11 @@ torch.set_num_threads(4)
 
 # the card's f64 step-0 gaps to the CPU, relative: (loss, gradient norm)
 CARD_GAPS = {"feedback": (3.21e-4, 2.58e-3), "history": (1.95e-5, 8.40e-4)}
+# the card's own f64 spread (loss, gradient norm) under four 1e-14 moves
+CARD_SPREAD = {"feedback": (3.70e-4, 4.71e-3)}
 FLAGS = {"feedback": ["--policy_variant", "feedback"],
          "history": ["--policy_variant", "history", "--H", "3"]}
-MOVES = 4
+MOVES = 16
 # (variant, quantity) pairs whose card gap lies within 10x JAX's own spread
 SETTLED = {("feedback", 0), ("history", 0), ("history", 1)}
 
@@ -99,8 +106,11 @@ def test_card_step0_gap_beside_jax_spread(name):
                                   if p.grad is not None)))
     port_gap = (abs(float(d["loss"]) - loss) / abs(loss), abs(g_port - gnorm) / gnorm)
     print(f"{name}: JAX's own spread (loss, grad norm) {spread}; port CPU vs JAX {port_gap}; "
-          f"card vs CPU {CARD_GAPS[name]}")
+          f"card vs CPU {CARD_GAPS[name]}; JAX's moves (loss, grad norm), relative: "
+          f"{[(abs(m[0] - loss) / abs(loss), abs(m[1] - gnorm) / gnorm) for m in moved]}")
     for k in (0, 1):
         assert port_gap[k] <= max(spread[k], 1e-9)
         if (name, k) in SETTLED:
             assert CARD_GAPS[name][k] <= 10 * spread[k]
+        elif name in CARD_SPREAD:  # C5: within the card's own spread
+            assert CARD_GAPS[name][k] <= CARD_SPREAD[name][k]
