@@ -425,11 +425,10 @@ def trace(fn, what):
     the profiler's warm-up step: CUDA's tracer, started cold, loses the
     records of the first kernels it sees now and then (on an H100 with six
     processes tracing at once, 69 of 72 traces of a 30,002-kernel call lost
-    1-8 kernels at their head, and none of 72 after a warm-up call:
-    `deqmpc_tpu_torch/training/trace_tail.py`, ways `wait_before_and_after`
-    and `warmup_call`). The profiler runs TRACE_WAIT_S before the traced
-    call and after its sync: stopped at once, it now and then drops the
-    records of a call's last kernels. The lanes trace one at a time
+    1-8 kernels at their head, and none of 72 after a warm-up call). The
+    profiler runs TRACE_WAIT_S before the traced call and after its sync:
+    stopped at once, it now and then drops the records of a call's last
+    kernels. The lanes trace one at a time
     (TRACE_LOCK): with six processes tracing at once, now and then one
     trace in a whole smoke showed 32-39 of the 38-43 launches its served
     tick or training step made, warm-up call or not (on an H100). A trace

@@ -17,6 +17,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..utils import Spaces  # noqa: F401  (the envs' box spaces)
+from ..utils import profiling
 
 
 class Env:
@@ -106,8 +107,12 @@ class Env:
         raise NotImplementedError
 
     def action_clip(self, u):
-        lo = torch.as_tensor(self.action_space.low, dtype=u.dtype, device=u.device)
-        hi = torch.as_tensor(self.action_space.high, dtype=u.dtype, device=u.device)
+        # two copies from pageable host memory: on the card each waits for
+        # the device's queue
+        with profiling.span("sync.action_bounds"):
+            profiling.count("host_reads", 2)
+            lo = torch.as_tensor(self.action_space.low, dtype=u.dtype, device=u.device)
+            hi = torch.as_tensor(self.action_space.high, dtype=u.dtype, device=u.device)
         return torch.clamp(u, lo, hi)
 
     def state_clip(self, x):
@@ -119,9 +124,10 @@ class Env:
 
     def step(self, x, u):
         """Functional step: (x, u) -> (x_next, reward)."""
-        u = self.action_clip(u)
-        x_next = self.state_clip(self.dynamics(x, u))
-        return x_next, self.reward(x_next, u)
+        with profiling.span("env.step"):
+            u = self.action_clip(u)
+            x_next = self.state_clip(self.dynamics(x, u))
+            return x_next, self.reward(x_next, u)
 
     @staticmethod
     def _uniform(generator: torch.Generator, bsz: int, lo, hi) -> torch.Tensor:

@@ -29,6 +29,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
 from . import tridiag
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "block_tridiag.cu"
@@ -66,6 +67,7 @@ def build() -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    profiling.count("kernel_builds")
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"block_tridiag: nvcc failed ({res.returncode}):\n"
@@ -83,28 +85,29 @@ MAX_WARPS = 4  # samples per CTA of the warp kernel
 
 @functools.lru_cache(maxsize=None)
 def _load_library() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(str(library_path()))
-    ptrs = [ctypes.c_void_p] * 5
-    for fn in (lib.bt_warp_solve_f32, lib.bt_warp_solve_f64):
-        fn.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for fn in (lib.bt_block_solve_f32, lib.bt_block_solve_f64):
-        fn.argtypes = ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.bt_warp_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.bt_warp_smem_bytes.restype = ctypes.c_size_t
-    lib.bt_warp_scratch_elems.argtypes = [ctypes.c_int] * 2
-    lib.bt_warp_scratch_elems.restype = ctypes.c_size_t
-    lib.bt_block_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.bt_block_smem_bytes.restype = ctypes.c_size_t
-    lib.bt_smem_optin.argtypes = [ctypes.c_int]
-    lib.bt_smem_optin.restype = ctypes.c_int
-    lib.solve = {("warp", torch.float32): lib.bt_warp_solve_f32,
-                 ("warp", torch.float64): lib.bt_warp_solve_f64,
-                 ("block", torch.float32): lib.bt_block_solve_f32,
-                 ("block", torch.float64): lib.bt_block_solve_f64}
-    return lib
+    with profiling.span("b1.load"):
+        build()
+        lib = ctypes.CDLL(str(library_path()))
+        ptrs = [ctypes.c_void_p] * 5
+        for fn in (lib.bt_warp_solve_f32, lib.bt_warp_solve_f64):
+            fn.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for fn in (lib.bt_block_solve_f32, lib.bt_block_solve_f64):
+            fn.argtypes = ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.bt_warp_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.bt_warp_smem_bytes.restype = ctypes.c_size_t
+        lib.bt_warp_scratch_elems.argtypes = [ctypes.c_int] * 2
+        lib.bt_warp_scratch_elems.restype = ctypes.c_size_t
+        lib.bt_block_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.bt_block_smem_bytes.restype = ctypes.c_size_t
+        lib.bt_smem_optin.argtypes = [ctypes.c_int]
+        lib.bt_smem_optin.restype = ctypes.c_int
+        lib.solve = {("warp", torch.float32): lib.bt_warp_solve_f32,
+                     ("warp", torch.float64): lib.bt_warp_solve_f64,
+                     ("block", torch.float32): lib.bt_block_solve_f32,
+                     ("block", torch.float64): lib.bt_block_solve_f64}
+        return lib
 
 
 @functools.lru_cache(maxsize=None)

@@ -64,6 +64,7 @@ import torch
 from .. import resolve_device
 from ..models.deq_layer import DEQLayer, DEQLayerConfig, FFDNetwork
 from ..solvers import ALState, ObstacleSet
+from ..utils import profiling
 from .tracking_mpc import TrackingMPC
 
 
@@ -214,21 +215,23 @@ class DEQMPCPolicy:
         """Cold-start forward (`deqmpc_policy.py:143-160`). obs (bsz, nx)
         -> {"trajs": [(x_ref, x_opt, u_opt)] * deq_iter, "status",
         "init_states", "carry"}."""
-        aux = self._cold_aux(obs)
-        policy_out = self._deqmpc_iter(obs, aux, self.tracking_mpc.init_state(obs.shape[0]),
-                                       *self._mode(qp_solve, lastqp_solve))
-        policy_out["init_states"] = aux["x"]
-        return policy_out
+        with profiling.span("policy.forward"):
+            aux = self._cold_aux(obs)
+            policy_out = self._deqmpc_iter(obs, aux, self.tracking_mpc.init_state(obs.shape[0]),
+                                           *self._mode(qp_solve, lastqp_solve))
+            policy_out["init_states"] = aux["x"]
+            return policy_out
 
     def forward_warm_start(self, obs, carry: PolicyCarry, qp_solve: Optional[bool] = None,
                            lastqp_solve: Optional[bool] = None) -> Dict:
         """Streaming forward (`deqmpc_policy.py:163-173`) from the carry of
         the tick before; same outputs as `forward`."""
-        aux = {"x": carry.x, "u": carry.u, "z": carry.z}
-        policy_out = self._deqmpc_iter(obs, aux, carry.solver,
-                                       *self._mode(qp_solve, lastqp_solve), warm_start=True)
-        policy_out["init_states"] = carry.x
-        return policy_out
+        with profiling.span("policy.forward"):
+            aux = {"x": carry.x, "u": carry.u, "z": carry.z}
+            policy_out = self._deqmpc_iter(obs, aux, carry.solver,
+                                           *self._mode(qp_solve, lastqp_solve), warm_start=True)
+            policy_out["init_states"] = carry.x
+            return policy_out
 
     def _deqmpc_iter(self, obs, aux: Dict, sol_state, qp_solve: bool,
                      lastqp_solve: bool, warm_start: bool = False) -> Dict:
@@ -237,7 +240,8 @@ class DEQMPCPolicy:
         status = torch.zeros((obs.shape[0],), dtype=torch.bool, device=obs.device)
         for i in range(self.deq_iter):
             it = i + 2 if warm_start else i
-            out_mpc, aux = self.model.step(obs, {**aux, "iter": it})
+            with profiling.span("network.step"):
+                out_mpc, aux = self.model.step(obs, {**aux, "iter": it})
             x_t, x_ref, u_ref = out_mpc["x_t"], out_mpc["x_ref"], out_mpc["u_ref"]
             if warm_start and i == 0:
                 # the receding-horizon shift of the duals and iterate

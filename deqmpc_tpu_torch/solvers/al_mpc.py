@@ -54,6 +54,7 @@ import torch
 
 from .. import resolve_device
 from ..parallel import collectives
+from ..utils import profiling
 from .al_core import ObstacleSet, compute_cost, full_residuals, num_constraints
 from .newton_al import NewtonAL
 from .types import ALState, LinDx, NewtonALConfig, QuadCost
@@ -164,13 +165,14 @@ class ALMPC:
     def _al_update(self, dyn, xu, x0, lam, rho, obs=None):
         """Residuals at the (detached) iterate, then the dual step (inequality
         and obstacle duals clamped at 0) and the uncapped penalty step."""
-        nx, neq = self.nx, self.T * self.nx
-        res, res_c = full_residuals(dyn, xu[..., :nx], xu[..., nx:], x0,
-                                    self.u_lower, self.u_upper, obs, self.state_estimator)
-        lam_next = lam + rho * res
-        lam_next = torch.cat([lam_next[:, :neq], torch.clamp(lam_next[:, neq:], min=0.0)],
-                             dim=1)
-        return lam_next, rho * 10.0, res_c
+        with profiling.span("al.update"):
+            nx, neq = self.nx, self.T * self.nx
+            res, res_c = full_residuals(dyn, xu[..., :nx], xu[..., nx:], x0,
+                                        self.u_lower, self.u_upper, obs, self.state_estimator)
+            lam_next = lam + rho * res
+            lam_next = torch.cat([lam_next[:, :neq], torch.clamp(lam_next[:, neq:], min=0.0)],
+                                 dim=1)
+            return lam_next, rho * 10.0, res_c
 
     def _result(self, xu, lam, rho, status):
         nx, bsz = self.nx, xu.shape[0]
@@ -196,57 +198,59 @@ class ALMPC:
         (`select_obstacles`), required when the solver has obstacles.
         compute_Qq: xu -> (Q, q), the cost refresh between AL iterations
         (the history records each iteration's cost before its refresh)."""
-        self._check_obstacles(obstacles)
-        al_iter = self.al_iter if al_iter is None else al_iter
-        nx, dtype = self.nx, self.dtype
-        x0 = x0.to(dtype)
-        Q = cost.Q.to(dtype)
-        q = cost.q.to(dtype)
-        bsz = x0.shape[0]
-        if x_init is None:
-            x_init = x0[:, None].expand(bsz, self.T, nx)
-        if u_init is None:
-            u_init = torch.zeros((bsz, self.T, self.nu), dtype=dtype, device=x0.device)
-        has = state.has_init[:, None, None]
-        x = torch.where(has, state.x, x_init.detach().to(dtype))
-        u = torch.where(has, state.u, u_init.detach().to(dtype))
-        lam, rho = state.lam, state.rho
-        xu = torch.cat([x, u], dim=-1)
-        stopped = torch.zeros((), dtype=torch.bool, device=x0.device)
-        if warm_start_history is not None:
-            lam, rho = warm_start_al(lam, rho, compute_cost(xu.detach(), Q, q),
-                                     *warm_start_history)
-        hist = ([compute_cost(xu.detach(), Q, q)], [lam], [rho])
-        for i in range(al_iter):
-            xu_in = xu.detach()
-            xu, _ = self.newton(xu_in, x0, lam, rho, Q, q, obstacles)
-            if streaming:
-                # freeze the iterate once the rho-cap exit has fired
-                xu = torch.where(stopped, xu_in, xu)
-            # the dual / penalty update takes no gradient (`al_mpc.py:269-271`)
-            xu_sg = xu.detach()
-            lam_next, rho_uncapped, _ = self._al_update(self.dyn, xu_sg, x0, lam, rho, obstacles)
-            # cap the penalty: in f32 an uncapped rho overflows the merit
-            rho_next = torch.clamp(rho_uncapped, max=self.rho_max)
-            if streaming:
-                lam = torch.where(stopped, lam, lam_next)
-                rho = torch.where(stopped, rho, rho_next)
-                # the exit tests the uncapped update (`al_mpc.py:286-296`):
-                # the capped rho never exceeds rho_max
-                stopped = stopped | (collectives.amax(rho_uncapped) > self.rho_max)
-            else:
-                lam, rho = lam_next, rho_next
-            for h, v in zip(hist, (compute_cost(xu_sg, Q, q), lam, rho)):
-                h.append(v)
-            if compute_Qq is not None and i < al_iter - 1:
-                Q_new, q_new = compute_Qq(xu_sg)
-                Q, q = Q_new.detach().to(dtype), q_new.detach().to(dtype)
-        status = (stopped.expand(bsz) if streaming
-                  else torch.zeros((bsz,), dtype=torch.bool, device=x0.device))
-        out = self._result(xu, lam, rho, status)
-        if return_history:
-            return (*out, tuple(torch.stack(h) for h in hist))
-        return out
+        with profiling.span("al.solve"):
+            self._check_obstacles(obstacles)
+            al_iter = self.al_iter if al_iter is None else al_iter
+            nx, dtype = self.nx, self.dtype
+            x0 = x0.to(dtype)
+            Q = cost.Q.to(dtype)
+            q = cost.q.to(dtype)
+            bsz = x0.shape[0]
+            if x_init is None:
+                x_init = x0[:, None].expand(bsz, self.T, nx)
+            if u_init is None:
+                u_init = torch.zeros((bsz, self.T, self.nu), dtype=dtype, device=x0.device)
+            has = state.has_init[:, None, None]
+            x = torch.where(has, state.x, x_init.detach().to(dtype))
+            u = torch.where(has, state.u, u_init.detach().to(dtype))
+            lam, rho = state.lam, state.rho
+            xu = torch.cat([x, u], dim=-1)
+            stopped = torch.zeros((), dtype=torch.bool, device=x0.device)
+            if warm_start_history is not None:
+                lam, rho = warm_start_al(lam, rho, compute_cost(xu.detach(), Q, q),
+                                         *warm_start_history)
+            hist = ([compute_cost(xu.detach(), Q, q)], [lam], [rho])
+            for i in range(al_iter):
+                xu_in = xu.detach()
+                xu, _ = self.newton(xu_in, x0, lam, rho, Q, q, obstacles)
+                if streaming:
+                    # freeze the iterate once the rho-cap exit has fired
+                    xu = torch.where(stopped, xu_in, xu)
+                # the dual / penalty update takes no gradient (`al_mpc.py:269-271`)
+                xu_sg = xu.detach()
+                lam_next, rho_uncapped, _ = self._al_update(self.dyn, xu_sg, x0, lam, rho,
+                                                            obstacles)
+                # cap the penalty: in f32 an uncapped rho overflows the merit
+                rho_next = torch.clamp(rho_uncapped, max=self.rho_max)
+                if streaming:
+                    lam = torch.where(stopped, lam, lam_next)
+                    rho = torch.where(stopped, rho, rho_next)
+                    # the exit tests the uncapped update (`al_mpc.py:286-296`):
+                    # the capped rho never exceeds rho_max
+                    stopped = stopped | (collectives.amax(rho_uncapped) > self.rho_max)
+                else:
+                    lam, rho = lam_next, rho_next
+                for h, v in zip(hist, (compute_cost(xu_sg, Q, q), lam, rho)):
+                    h.append(v)
+                if compute_Qq is not None and i < al_iter - 1:
+                    Q_new, q_new = compute_Qq(xu_sg)
+                    Q, q = Q_new.detach().to(dtype), q_new.detach().to(dtype)
+            status = (stopped.expand(bsz) if streaming
+                      else torch.zeros((bsz,), dtype=torch.bool, device=x0.device))
+            out = self._result(xu, lam, rho, status)
+            if return_history:
+                return (*out, tuple(torch.stack(h) for h in hist))
+            return out
 
     def linearize(self, state: ALState) -> LinDx:
         """The dynamics linearised at the state's iterate (detached):
@@ -280,29 +284,30 @@ class ALMPC:
         them: the stall exit (the batch's global ||res_c|| not below the
         best so far, starting from inf) and the rho-cap exit on the
         *capped* rho (`>=`). Returns (x, u, status, new_state)."""
-        self._check_obstacles(obstacles)
-        dtype = self.dtype
-        x0 = x0.to(dtype)
-        Q = cost.Q.to(dtype)
-        q = cost.q.to(dtype)
-        lin_dyn, lin_dyn_jac = self.linear_dynamics(self.linearize(state))
-        newton = self.newton.with_dynamics(lin_dyn, lin_dyn_jac)
-        lam, rho = state.lam, state.rho
-        xu = torch.cat([state.x, state.u], dim=-1)
-        stopped = torch.zeros((), dtype=torch.bool, device=x0.device)
-        prev_res = torch.tensor(float("inf"), dtype=dtype, device=x0.device)
-        for _ in range(num_iters):
-            xu_in = xu.detach()
-            xu, _ = newton(xu_in, x0, lam, rho, Q, q, obstacles)
-            xu = torch.where(stopped, xu_in, xu)
-            lam_next, rho_uncapped, res_c = self._al_update(lin_dyn, xu.detach(), x0, lam, rho,
-                                                            obstacles)
-            lam = torch.where(stopped, lam, lam_next)
-            rho = torch.where(stopped, rho, torch.clamp(rho_uncapped, max=self.rho_max))
-            cur_res = collectives.global_norm(res_c)
-            stopped = stopped | (cur_res >= prev_res) | (collectives.amax(rho) >= self.rho_max)
-            prev_res = torch.minimum(prev_res, cur_res)
-        return self._result(xu, lam, rho, stopped.expand(x0.shape[0]))
+        with profiling.span("al.solve"):
+            self._check_obstacles(obstacles)
+            dtype = self.dtype
+            x0 = x0.to(dtype)
+            Q = cost.Q.to(dtype)
+            q = cost.q.to(dtype)
+            lin_dyn, lin_dyn_jac = self.linear_dynamics(self.linearize(state))
+            newton = self.newton.with_dynamics(lin_dyn, lin_dyn_jac)
+            lam, rho = state.lam, state.rho
+            xu = torch.cat([state.x, state.u], dim=-1)
+            stopped = torch.zeros((), dtype=torch.bool, device=x0.device)
+            prev_res = torch.tensor(float("inf"), dtype=dtype, device=x0.device)
+            for _ in range(num_iters):
+                xu_in = xu.detach()
+                xu, _ = newton(xu_in, x0, lam, rho, Q, q, obstacles)
+                xu = torch.where(stopped, xu_in, xu)
+                lam_next, rho_uncapped, res_c = self._al_update(lin_dyn, xu.detach(), x0, lam, rho,
+                                                                obstacles)
+                lam = torch.where(stopped, lam, lam_next)
+                rho = torch.where(stopped, rho, torch.clamp(rho_uncapped, max=self.rho_max))
+                cur_res = collectives.global_norm(res_c)
+                stopped = stopped | (cur_res >= prev_res) | (collectives.amax(rho) >= self.rho_max)
+                prev_res = torch.minimum(prev_res, cur_res)
+            return self._result(xu, lam, rho, stopped.expand(x0.shape[0]))
 
     # -- diagnostics ----------------------------------------------------------
     def kkt_residuals(self, x0, cost: QuadCost, x, u, obstacles: Optional[ObstacleSet] = None):

@@ -22,7 +22,12 @@ Port of `deqmpc_tpu/solvers/newton_al.py:58-233`. The forward:
   * the selected obstacles, an `ObstacleSet` or None, come with each call
     (`obs=`) and reach the merit, the residual norm, the assembly and the
     implicit backward's (D, O). JAX reads them through a closure over the
-    solver's state (`newton_al.py:59-65,159`); here nothing is stored.
+    solver's state (`newton_al.py:59-65,159`); here nothing is stored;
+  * the phases are spans of `utils.profiling`: `newton.start`, then per
+    Newton step `newton.step` holding `newton.linearize`,
+    `newton.assemble`, `newton.b1`, `newton.retry`, `newton.line_search`
+    and `newton.residual`; each of the two host reads a step sits in a
+    `sync.*` span and adds one to the `host_reads` counter.
 
 The backward is the JAX package's `custom_vjp` (`newton_al.py:203-232`)
 as a `torch.autograd.Function`: the forward loop runs on detached inputs,
@@ -43,6 +48,7 @@ import torch
 
 from ..ops.block_tridiag import block_tridiag_solve
 from ..parallel import collectives
+from ..utils import profiling
 from .al_core import ObstacleSet, full_residuals, merit_function, merit_grad_blocks
 from .types import NewtonALConfig
 
@@ -113,33 +119,39 @@ class NewtonAL:
     def _assemble(self, xu, Q, q, x0, lam, rho, obs):
         nx = self.cfg.nx
         x, u = xu[..., :nx], xu[..., nx:]
-        x_next, F = self.dyn_jac(x[:, :-1], u[:, :-1])
-        defects = x[:, 1:] - x_next
-        last = (torch.zeros_like(defects[:, :1]) if self.cfg.state_estimator
-                else (x[:, 0] - x0)[:, None])
-        return merit_grad_blocks(xu, Q, q, x0, lam, rho, F, self.u_lower,
-                                 self.u_upper, dyn_eq_res=torch.cat([defects, last], dim=1),
-                                 obs=obs, state_estimator=self.cfg.state_estimator)
+        with profiling.span("newton.linearize"):
+            x_next, F = self.dyn_jac(x[:, :-1], u[:, :-1])
+        with profiling.span("newton.assemble"):
+            defects = x[:, 1:] - x_next
+            last = (torch.zeros_like(defects[:, :1]) if self.cfg.state_estimator
+                    else (x[:, 0] - x0)[:, None])
+            return merit_grad_blocks(xu, Q, q, x0, lam, rho, F, self.u_lower,
+                                     self.u_upper, dyn_eq_res=torch.cat([defects, last], dim=1),
+                                     obs=obs, state_estimator=self.cfg.state_estimator)
 
     @staticmethod
     def _all_finite(upd) -> bool:
         """Whether the update is finite on every sample of the whole batch
         (every process's shard): one host read."""
-        return collectives.all_true(torch.isfinite(upd).all())
+        with profiling.span("sync.finite"):
+            profiling.count("host_reads")
+            return collectives.all_true(torch.isfinite(upd).all())
 
     def _solve_newton_system(self, g, D, O):
         """Solve H x = -g; retry once with a jittered diagonal when the
         result has a non-finite entry anywhere in the batch."""
-        O, g = O.contiguous(), g.contiguous()
-        upd = -block_tridiag_solve(D.contiguous(), O, g)
+        with profiling.span("newton.b1"):
+            O, g = O.contiguous(), g.contiguous()
+            upd = -block_tridiag_solve(D.contiguous(), O, g)
         if self._all_finite(upd):
             return upd
         self.retries += 1
-        scale = torch.clamp(torch.amax(torch.abs(D), dim=(-3, -2, -1), keepdim=True),
-                            min=1.0)
-        Dj = D + self.cfg.fallback_jitter * scale * torch.eye(
-            D.shape[-1], dtype=D.dtype, device=D.device)
-        return -block_tridiag_solve(Dj.contiguous(), O, g)
+        with profiling.span("newton.retry"):
+            scale = torch.clamp(torch.amax(torch.abs(D), dim=(-3, -2, -1), keepdim=True),
+                                min=1.0)
+            Dj = D + self.cfg.fallback_jitter * scale * torch.eye(
+                D.shape[-1], dtype=D.dtype, device=D.device)
+            return -block_tridiag_solve(Dj.contiguous(), O, g)
 
     def _line_search(self, xu, update, merit_now, Q, q, x0, lam, rho, obs):
         """n_ls step sizes 2^{0..-(n_ls-1)} in one batched merit call; keep
@@ -185,23 +197,31 @@ class NewtonAL:
         torch.backends.cudnn.allow_tf32 = False
         cfg = self.cfg
         bsz = xu.shape[0]
-        merit = self._merit(xu, Q, q, x0, lam, rho, obs)
-        dres_old = self._dyn_res_norm(xu, x0, obs)
+        with profiling.span("newton.start"):
+            merit = self._merit(xu, Q, q, x0, lam, rho, obs)
+            dres_old = self._dyn_res_norm(xu, x0, obs)
         status = torch.ones((bsz,), dtype=torch.bool, device=xu.device)
         for _ in range(cfg.max_newton_steps):
-            g, D, O, _, _ = self._assemble(xu, Q, q, x0, lam, rho, obs)
-            update = self._solve_newton_system(g, D, O)
-            self.steps += 1
-            xu, merit, stepsz = self._line_search(xu, update, merit, Q, q, x0, lam, rho, obs)
-            status = status & torch.isfinite(xu.reshape(bsz, -1)).all(dim=-1)
-            dres_new = self._dyn_res_norm(xu, x0, obs)
-            # global stall / convergence rule (`al_utils.py:558-564`)
-            done = ((torch.abs(dres_old - dres_new) / (dres_new + 1e-30) < cfg.dyn_res_tol)
-                    | (dres_new < cfg.dyn_res_tol))
-            dres_old = dres_new
-            # one host read per Newton step: the while loop's condition
-            stop = done | ~(stepsz > cfg.min_stepsz)
-            if bool(stop):
+            with profiling.span("newton.step"):
+                g, D, O, _, _ = self._assemble(xu, Q, q, x0, lam, rho, obs)
+                update = self._solve_newton_system(g, D, O)
+                self.steps += 1
+                with profiling.span("newton.line_search"):
+                    xu, merit, stepsz = self._line_search(xu, update, merit, Q, q, x0, lam,
+                                                          rho, obs)
+                status = status & torch.isfinite(xu.reshape(bsz, -1)).all(dim=-1)
+                with profiling.span("newton.residual"):
+                    dres_new = self._dyn_res_norm(xu, x0, obs)
+                # global stall / convergence rule (`al_utils.py:558-564`)
+                done = ((torch.abs(dres_old - dres_new) / (dres_new + 1e-30) < cfg.dyn_res_tol)
+                        | (dres_new < cfg.dyn_res_tol))
+                dres_old = dres_new
+                # one host read per Newton step: the while loop's condition
+                stop = done | ~(stepsz > cfg.min_stepsz)
+                with profiling.span("sync.stop"):
+                    profiling.count("host_reads")
+                    stop = bool(stop)
+            if stop:
                 break
         return xu, status
 

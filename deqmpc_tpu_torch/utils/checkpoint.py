@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from . import profiling
 
 _EXT_NDARRAY = 1
 
@@ -255,11 +256,12 @@ def checkpoint_step(path) -> int:
 def load_checkpoint(path, device="cuda") -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """Returns (state dict for the policy's `DEQLayer`, on `device`; args),
     from a JAX-package checkpoint or a port checkpoint."""
-    device = resolve_device(device)
-    if is_port_checkpoint(path):
-        blob = read_port_checkpoint(path)
-        state, args = blob["model"], dict(blob["args"])
-    else:
-        tree, args = read_checkpoint(path)
-        state = params_from_jax(tree)
-    return {k: v.to(device) for k, v in state.items()}, args
+    with profiling.span("checkpoint.load"):
+        device = resolve_device(device)
+        if is_port_checkpoint(path):
+            blob = read_port_checkpoint(path)
+            state, args = blob["model"], dict(blob["args"])
+        else:
+            tree, args = read_checkpoint(path)
+            state = params_from_jax(tree)
+        return {k: v.to(device) for k, v in state.items()}, args
